@@ -1,0 +1,29 @@
+"""The port's ``KernelOps`` layer: protocol, registry and the two backends.
+
+Importing this package registers ``"torch"`` (plain blocked reference) and
+``"cuda"`` (hand-written Hopper kernels) in this package's own registry.
+"""
+from .base import (
+    POLICIES,
+    PRECISIONS,
+    SWEEP_PATHS,
+    CountingOps,
+    KernelOps,
+    OpsBase,
+    PrecisionPolicy,
+    SweepPlan,
+    SweepPlanWarning,
+    available_ops,
+    get_ops,
+    register_ops,
+    resolve_precision,
+)
+from .cuda_backend import CudaKernelOps
+from .torch_backend import TorchKernelOps
+
+__all__ = [
+    "POLICIES", "PRECISIONS", "SWEEP_PATHS", "CountingOps", "CudaKernelOps",
+    "KernelOps", "OpsBase", "PrecisionPolicy", "SweepPlan", "SweepPlanWarning",
+    "TorchKernelOps", "available_ops", "get_ops", "register_ops",
+    "resolve_precision",
+]
