@@ -11,9 +11,10 @@ card that default raises rather than dropping to the CPU — pass
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP.md item: the bf16 policy (A7), leverage-score centers and the
-lam-path fit (A6), the K_nM cache (A11), a mesh (A14), the blocked factor
-(A10, raised by the preconditioner past its budget), streaming fits (A8)
-and mini-batch fits (A12).
+lam-path fit (A6), the K_nM cache (A11), a mesh (A14), streaming fits
+(A8) and mini-batch fits (A12). A large M routes the factor to the blocked
+out-of-core Cholesky and the sweep off the fused route, as planned by
+``plan_factor`` and ``plan_sweep``.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.ops import KernelOps, available_ops, get_ops, resolve_precision
+from repro_torch.kernels.blocked_cholesky import FactorStats
+from repro_torch.ops import KernelOps, available_ops, get_ops, plan_factor, resolve_precision
 from repro_torch.ops.base import require_fp32_policy
 
 from .cg import conjugate_gradient
@@ -224,10 +226,21 @@ def _stage_gram(ops: KernelOps, centers: Tensor) -> Tensor:
 
 
 def _stage_precondition(KMM: Tensor, lam: float, n: int, config: FalkonConfig, *,
-                        D: Tensor | None = None) -> Preconditioner:
-    """Stage 3 — factorization (single lam; the lam path is A6)."""
-    return make_preconditioner(KMM, lam, n, D=D, jitter=config.jitter,
-                               rank_deficient=config.rank_deficient)
+                        D: Tensor | None = None,
+                        report: dict | None = None) -> Preconditioner:
+    """Stage 3 — factorization (single lam; the lam path is A6), routed
+    in-core or blocked by the factor budget. ``report``, when given,
+    receives the plan's path and block and the blocked path's
+    ``FactorStats`` (device peak, bytes moved, copy and tile seconds; all
+    zero in-core)."""
+    plan = plan_factor(KMM.shape[0], itemsize=max(KMM.dtype.itemsize, 4))
+    stats = FactorStats()
+    precond = make_preconditioner(KMM, lam, n, D=D, jitter=config.jitter,
+                                  rank_deficient=config.rank_deficient, factor_plan=plan,
+                                  factor_stats=stats)
+    if report is not None:
+        report.update(factor_path=plan.path, factor_block=plan.block, factor_stats=stats)
+    return precond
 
 
 def _stage_wrap(centers: Tensor, alpha: Tensor, kernel: KernelFn, config: FalkonConfig,
@@ -263,7 +276,9 @@ def falkon_fit(generator: torch.Generator | int, X, y, config: FalkonConfig, *,
     ``config.device``). X and y (tensors or numpy arrays) are moved to
     ``config.device`` at ``config.dtype``. ``ops`` replaces the configured
     backend (e.g. a ``CountingOps``). ``stage_times``, when given, receives
-    the synchronised wall time of each stage: centers, gram, factor, solve.
+    the synchronised wall time of each stage: centers, gram, factor, solve,
+    and the factor plan's ``factor_path`` and ``factor_block`` with the
+    blocked path's ``factor_stats``.
     """
     device = resolve_device(config.device)
     if isinstance(generator, int):
@@ -281,7 +296,9 @@ def falkon_fit(generator: torch.Generator | int, X, y, config: FalkonConfig, *,
     with _timed(stage_times, "gram", device):
         KMM = _stage_gram(ops, sel.centers)
     with _timed(stage_times, "factor", device):
-        precond = _stage_precondition(KMM, config.lam, n, config, D=sel.D)
+        precond = _stage_precondition(KMM, config.lam, n, config, D=sel.D,
+                                      report=stage_times)
+    del KMM   # O(M^2) on the device; the solve needs only T and A
     with _timed(stage_times, "solve", device):
         state = falkon_solve(X, y, sel.centers, precond, kernel, config.lam,
                              config.iterations, tol=config.tol,

@@ -1,13 +1,14 @@
 """Build the CUDA sources under ``csrc/`` at first use and load them.
 
-The sources are compiled with ``nvcc`` into a shared library with a plain C
-interface (no PyTorch headers), keyed by a hash of the sources and flags,
-into ``_build/`` beside this file (git-ignored), and loaded with ``ctypes``.
-The first call in a process pays the build; later calls in the same
-checkout reuse the library. Nothing here runs at import time.
+Each source is compiled with ``nvcc`` into its own shared library with a
+plain C interface (no PyTorch headers), keyed by a hash of the sources and
+flags, into ``_build/`` beside this file (git-ignored), and loaded with
+``ctypes``. The first call in a process pays the build; later calls in the
+same checkout reuse the library. :func:`build_all` starts one ``nvcc`` per
+source, all at once. Nothing here runs at import time.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libkernel_matvec_<hash>.so csrc/kernel_matvec.cu
+         -Xcompiler -fPIC -o _build/lib<name>_<hash>.so csrc/<name>.cu
 
 No ``--use_fast_math``: the kernels hold IEEE fp32 against the reference.
 """
@@ -23,7 +24,6 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCE = "kernel_matvec.cu"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -32,16 +32,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-#: argtypes of every C entry point; each returns a cudaError_t as int
-_SIGNATURES = {
-    "rt_tile_smem_bytes": [],
-    "rt_sweep_grid": [_I, _I, ctypes.POINTER(_I)],
-    "rt_fused_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _I, _F, _F, _F, _F, _I,
-                       _I, _I, _I, _I, _P, _P, _P, _P],
-    "rt_kernel_matmul": [_P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _F, _F, _F, _F, _I, _I, _P, _P],
-    "rt_pairwise": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P],
+#: library name (= source stem) -> (error-string entry, argtypes of every C
+#: entry point; each returns a cudaError_t as int)
+LIBRARIES = {
+    "kernel_matvec": ("rt_error_string", {
+        "rt_tile_smem_bytes": [],
+        "rt_sweep_grid": [_I, _I, ctypes.POINTER(_I)],
+        "rt_fused_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _F, _F, _F, _F, _I,
+                           _I, _I, _I, _I, _P, _P, _P, _P],
+        "rt_kernel_matmul": [_P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _F, _F, _F, _F, _I, _I, _P, _P],
+        "rt_pairwise": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P],
+    }),
+    "blocked_cholesky": ("rb_error_string", {
+        "rb_potrf": [_P, _P, _I, _P],
+        "rb_trsm": [_P, _P, _P, _I, _I, _P],
+        "rb_update": [_P, _P, _P, _P, _I, _I, _I, _P],
+    }),
 }
 
 
@@ -66,42 +74,66 @@ def _nvcc() -> str:
         "kernels need the CUDA toolkit to build")
 
 
-def build() -> Path:
-    """Compile the sources if this hash has no library yet; return its path.
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}_{_sources_hash()}.so"
+
+
+def build_all(names=None) -> dict[str, Path]:
+    """Compile every library (or ``names``) whose hash has no build yet, one
+    ``nvcc`` per source, all started together; return name -> path.
 
     The compiler's report (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept beside the library as ``<name>.log``.
+    spills per kernel) is kept beside each library as ``<name>.log``.
     """
-    lib = BUILD_DIR / f"libkernel_matvec_{_sources_hash()}.so"
-    if lib.exists():
-        return lib
+    names = list(LIBRARIES if names is None else names)
+    paths = {name: library_path(name) for name in names}
+    todo = {name: path for name, path in paths.items() if not path.exists()}
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: a concurrent builder never loads a partial file
-    return lib
+    nvcc = _nvcc()
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        lib = todo[name]
+        lib.with_suffix(".log").write_text(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+            continue
+        os.replace(tmp, lib)   # atomic: a concurrent build never loads a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def build(name: str = "kernel_matvec") -> Path:
+    """Compile one library if its hash has no build yet; return its path."""
+    return build_all([name])[name]
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with typed entry points."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def load(name: str = "kernel_matvec") -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library, with typed entry points."""
+    err_fn, signatures = LIBRARIES[name]
+    lib = ctypes.CDLL(str(build(name)))
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.rt_error_string.argtypes = [ctypes.c_int]
-    lib.rt_error_string.restype = ctypes.c_char_p
+    err = getattr(lib, err_fn)
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
-def check(code: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error."""
+def check(code: int, what: str, name: str = "kernel_matvec") -> None:
+    """Raise if a C entry point of library ``name`` returned a CUDA error."""
     if code != 0:
-        msg = load().rt_error_string(code).decode()
+        msg = getattr(load(name), LIBRARIES[name][0])(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,11 +1,13 @@
 """Hand-written Hopper kernels for FALKON's O(nMt) hot loop, and their twins.
 
-Counterpart of ``repro/kernels/kernel_matvec.py``. Three wrappers, each
+Counterpart of ``repro/kernels/kernel_matvec.py``. Four wrappers, each
 beside its plain PyTorch twin:
 
 * :func:`fused_sweep`     (B1) ``w = K(X,C)^T (K(X,C) u + v)`` — the CG sweep;
 * :func:`kernel_matmul`   (B2) ``out = K(A,B) V + add``        — prediction;
-* :func:`pairwise_kernel` (B3) ``K(A,B)`` materialized          — K_MM.
+* :func:`pairwise_kernel` (B3) ``K(A,B)`` materialized          — K_MM;
+* :func:`sharded_sweep`   (B4) the sweep as B2 launches over C-shards, for
+  M past the fused sweep's device workspace.
 
 The kernels live in ``csrc/kernel_matvec.cu`` and ``csrc/tile.cuh`` (whose
 header comments give each kernel's bound on the card and its design). A
@@ -34,6 +36,7 @@ BM = 64          # Gram tile rows (X / A side)
 BN = 64          # Gram tile columns (C / B side)
 DK = 32          # d-chunk staged through shared memory per round
 TY = 16          # thread rows of a block (pass-2 reduction depth)
+NT = 256         # threads of a Gram-tile block
 MAX_P = 4        # widest right-hand side the sweep and matmul kernels take
 _P_PADS = (1, 4)   # compiled widths; p is padded up to the next one
 #: shared memory of one staged tile (csrc/tile.cuh ``TileSmem``)
@@ -81,6 +84,24 @@ def sweep_smem_bytes(M: int, p: int) -> tuple[int, bool]:
     if with_w <= W_SMEM_LIMIT:
         return with_w, True
     return base, False
+
+
+#: the card the sweep planner models: SMs, and resident threads and shared
+#: memory of one SM (H100 SXM)
+SMS = 132
+SM_THREADS = 2048
+SM_SMEM = 233_472
+BLOCK_SMEM_RESERVED = 1024
+
+
+def sweep_grid_model(M: int, p: int) -> int:
+    """Persistent sweep blocks the planner charges for: SMs x the blocks one
+    SM can hold by threads and shared memory. The launch queries the card's
+    occupancy instead, which registers can only lower, so the model bounds
+    the grid, and the w-partial workspace, from above."""
+    smem, _ = sweep_smem_bytes(M, p)
+    per_sm = min(SM_THREADS // NT, SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
+    return SMS * max(per_sm, 1)
 
 
 def _kparams(spec: KernelSpec) -> tuple:
@@ -341,14 +362,94 @@ def pairwise_kernel(A: Tensor, B: Tensor, *, spec: KernelSpec) -> Tensor:
 
 pairwise_kernel.launches = 0
 
-WRAPPERS = (fused_sweep, kernel_matmul, pairwise_kernel)
+# ---------------------------------------------------------------------------
+# B4 j-sharded sweep: w = K(X, C)^T (K(X, C) u + v) as B2 launches
+# ---------------------------------------------------------------------------
+#: rows of X per B2 launch in the sharded sweep's transposed pass. B2 sums
+#: its B rows in one fp32 chain per lane, which at n = 4.6x10^5 rounds more
+#: than B1: on an H100 (tools/sweep_rounding.py, three draws) one chain
+#: stood 1.51e-6, 6.92e-7 and 6.53e-7 from a float64 sweep, normwise,
+#: 65536-row chunks chained through ``add=`` 1.38e-6, 3.21e-7 and 2.03e-7
+#: (B1 1.42e-6, 4.52e-7 and 3.86e-7).
+SHARD_ROW_CHUNK = 65_536
+
+
+def _transposed_pass(matmul, C: Tensor, X: Tensor, t: Tensor, shard: int, **kw) -> Tensor:
+    """w = K(C, X) t, one shard of C rows at a time, each summed over X in
+    ``SHARD_ROW_CHUNK``-row chunks chained through ``add=``."""
+    ws = []
+    for j0 in range(0, C.shape[0], shard):
+        w = None
+        for r0 in range(0, X.shape[0], SHARD_ROW_CHUNK):
+            r1 = r0 + SHARD_ROW_CHUNK
+            w = matmul(C[j0:j0 + shard], X[r0:r1], t[r0:r1], w, **kw)
+        ws.append(w)
+    return torch.cat(ws, dim=0)
+
+
+def sharded_sweep_plain(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
+                        spec: KernelSpec, row_mask: Tensor | None = None,
+                        shard_m: int) -> Tensor:
+    """Plain twin of the sharded sweep: the same composition over the plain
+    twin of B2. ``u`` (M, p), ``v`` (n, p) or None."""
+    t = kernel_matmul_plain(X, C, u, v, spec=spec)
+    if row_mask is not None:
+        t = t * row_mask.to(t.dtype)[:, None]
+    return _transposed_pass(kernel_matmul_plain, C, X, t, shard_m, spec=spec)
+
+
+def sharded_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
+                  spec: KernelSpec, row_mask: Tensor | None = None, shard_m: int = 8192,
+                  t_dtype: torch.dtype | None = None,
+                  out_dtype: torch.dtype | None = None) -> Tensor:
+    """w = K(X,C)^T (K(X,C) u + v) for M past the fused sweep's workspace.
+
+    The out-of-core schedule of the reference's ``sharded_sweep_pallas``,
+    built from B2: ``t = kernel_matmul(X, C, u, add=v)`` spills (n, p) to
+    device memory, rows with ``row_mask == 0`` are multiplied to exactly 0,
+    then ``kernel_matmul(C_j, X, t)`` per ``shard_m`` rows of C (over X in
+    ``SHARD_ROW_CHUNK``-row chunks chained through ``add=``), and the shards
+    are concatenated. Each Gram entry is evaluated twice. This wrapper
+    counts one launch per call on a CUDA tensor, and each B2 launch inside
+    it counts on ``kernel_matmul``'s counter too. Only float32 ``t_dtype`` /
+    ``out_dtype`` (or None) are taken: the others are ROADMAP A7.
+    """
+    for name, dt in (("t_dtype", t_dtype), ("out_dtype", out_dtype)):
+        if dt not in (None, torch.float32):
+            raise NotImplementedError(f"sharded_sweep {name}={dt}: {_A7}")
+    shard = max(int(shard_m), 1)
+    squeeze = u.ndim == 1
+    u2 = u[:, None] if squeeze else u
+    v2 = None if v is None else (v[:, None] if squeeze else v)
+    if _route("sharded_sweep", X, C, u2, v2, row_mask) == "cpu":
+        w = sharded_sweep_plain(X, C, u2, v2, spec=spec, row_mask=row_mask, shard_m=shard)
+    else:
+        t = kernel_matmul(X, C, u2, v2, spec=spec)
+        if row_mask is not None:
+            if row_mask.shape != (X.shape[0],):
+                raise ValueError(f"sharded_sweep: row_mask shape {tuple(row_mask.shape)} "
+                                 f"!= ({X.shape[0]},)")
+            t = t * row_mask.to(t.dtype)[:, None]
+        w = _transposed_pass(kernel_matmul, C, X, t, shard, spec=spec)
+        sharded_sweep.launches += 1
+    return w[:, 0] if squeeze else w
+
+
+sharded_sweep.launches = 0
+
+WRAPPERS = (fused_sweep, sharded_sweep, kernel_matmul, pairwise_kernel)
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    """Kernel launches per wrapper since the last reset: B1-B4 here and the
+    blocked Cholesky's B5-B7."""
+    from . import blocked_cholesky
+    return {**{fn.__name__: fn.launches for fn in WRAPPERS},
+            **blocked_cholesky.launch_counts()}
 
 
 def reset_launch_counts() -> None:
+    from . import blocked_cholesky
     for fn in WRAPPERS:
         fn.launches = 0
+    blocked_cholesky.reset_launch_counts()

@@ -4,10 +4,13 @@ Importing this package registers ``"torch"`` (plain blocked reference) and
 ``"cuda"`` (hand-written Hopper kernels) in this package's own registry.
 """
 from .base import (
+    FACTOR_PATHS,
     POLICIES,
     PRECISIONS,
     SWEEP_PATHS,
     CountingOps,
+    FactorPlan,
+    FactorPlanWarning,
     KernelOps,
     OpsBase,
     PrecisionPolicy,
@@ -15,6 +18,8 @@ from .base import (
     SweepPlanWarning,
     available_ops,
     get_ops,
+    plan_factor,
+    plan_sweep,
     register_ops,
     resolve_precision,
 )
@@ -22,8 +27,9 @@ from .cuda_backend import CudaKernelOps
 from .torch_backend import TorchKernelOps
 
 __all__ = [
-    "POLICIES", "PRECISIONS", "SWEEP_PATHS", "CountingOps", "CudaKernelOps",
-    "KernelOps", "OpsBase", "PrecisionPolicy", "SweepPlan", "SweepPlanWarning",
-    "TorchKernelOps", "available_ops", "get_ops", "register_ops",
+    "FACTOR_PATHS", "POLICIES", "PRECISIONS", "SWEEP_PATHS", "CountingOps",
+    "CudaKernelOps", "FactorPlan", "FactorPlanWarning", "KernelOps", "OpsBase",
+    "PrecisionPolicy", "SweepPlan", "SweepPlanWarning", "TorchKernelOps",
+    "available_ops", "get_ops", "plan_factor", "plan_sweep", "register_ops",
     "resolve_precision",
 ]

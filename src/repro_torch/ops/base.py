@@ -22,10 +22,21 @@ This module imports nothing from ``repro_torch.core`` or
 port so far: the bf16 end-to-end policy (reduced storage, Kahan-compensated
 accumulation) is ROADMAP item A7, and backends refuse it with
 ``NotImplementedError`` rather than running fp32 under its name.
+
+It also hosts the two memory planners, pure arithmetic like the
+reference's, each with a structured warning carrying the plan:
+
+* :func:`plan_sweep` -> :class:`SweepPlan` (+ ``SweepPlanWarning``): routes
+  a sweep fused -> two_pass -> j_sharded against Hopper's device-workspace
+  model (``REPRO_SWEEP_BUDGET_MB``), not the TPU's VMEM model.
+* :func:`plan_factor` -> :class:`FactorPlan` (+ ``FactorPlanWarning``):
+  routes the preconditioner's Cholesky factors incore -> blocked against the
+  reference's dense-factor budget (``REPRO_FACTOR_BUDGET_MB``, 512 MB).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Protocol, runtime_checkable
 
 PRECISIONS = ("fp32", "bf16")
@@ -103,10 +114,26 @@ def require_fp32_policy(policy: PrecisionPolicy) -> None:
             "end-to-end policy is ROADMAP.md item A7")
 
 
-#: ``"two_eval"`` — the CUDA sweep: one kernel launch per sweep that
-#: evaluates every Gram tile twice (forward pass, then transposed pass);
-#: ``"torch"`` — the plain blocked row scan.
-SWEEP_PATHS = ("two_eval", "torch")
+#: ``"fused"`` — B1: one launch per sweep that evaluates every Gram tile
+#: twice and folds K^T t into per-block w partials (a device workspace of
+#: grid x M x P floats); ``"two_pass"`` / ``"j_sharded"`` — B4: the sweep as
+#: B2 launches, t = K(X,C)u + v spilled to device memory, then K(C_j,X)t per
+#: C-shard (one shard covering all of M is the two-pass case); ``"torch"`` —
+#: the plain blocked row scan.
+SWEEP_PATHS = ("fused", "two_pass", "j_sharded", "torch")
+
+#: Default device-memory budget for the fused sweep's w-partial workspace.
+#: Override per process with ``REPRO_SWEEP_BUDGET_MB`` (the port's
+#: counterpart of the JAX package's ``REPRO_VMEM_BUDGET_MB``; tests and the
+#: chip smoke use it to force each route) or per call via
+#: ``plan_sweep(workspace_budget=)``. 2 GiB keeps M up to ~5x10^5 at p = 1
+#: (M = 5x10^4 at p = 4) on the fused route of an 80 GB card.
+DEFAULT_SWEEP_BUDGET = 2 * 2**30
+
+
+def _sweep_budget() -> int:
+    mb = os.environ.get("REPRO_SWEEP_BUDGET_MB")
+    return int(float(mb) * 2**20) if mb else DEFAULT_SWEEP_BUDGET
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +149,10 @@ class SweepPlan:
     p: int                     # TOTAL column width charged (= systems * p_rhs)
     block_m: int               # (bm, bn) tile dims the sweep runs with
     block_n: int
-    scratch_bytes: int         # on-chip scratch per block (CUDA: shared memory)
+    shard_m: int | None        # C-shard rows of the j_sharded route
+    scratch_bytes: int         # shared memory of one fused-sweep block
+    io_bytes: int              # device workspace of the fused route: its w partials
+    workspace_budget_bytes: int
     reason: str
     input_dtype: str = "float32"
     accum_dtype: str = "float32"
@@ -136,16 +166,167 @@ class SweepPlan:
                        + 2 * self.M * self.p)
 
 
+def plan_sweep(n: int, M: int, d: int, p: int = 1, *, bm: int, bn: int,
+               width: int, scratch_bytes: int, grid: int, systems: int = 1,
+               policy: "PrecisionPolicy | None" = None,
+               workspace_budget: int | None = None,
+               shard_m: int | None = None) -> SweepPlan:
+    """Pick fused / two_pass / j_sharded from Hopper's device-memory model.
+
+    The fused sweep (B1) runs ``grid`` persistent blocks, each holding
+    ``scratch_bytes`` of shared memory and its own w partial of M x
+    ``width`` floats (``width`` = the compiled column width, p padded up) in
+    a global workspace of ``min(grid, ceil(n / bm)) * M * width * 4`` bytes.
+    When that workspace passes the budget, the sweep takes B4: each Gram
+    entry is still evaluated twice, and only the C-shard size is left to
+    choose. ``shard_m`` is sized so that one shard's C rows and w rows
+    (``d + width`` floats a row) fill the budget, in multiples of ``bn``; a
+    single shard covering all of M is the two-pass route.
+
+    ``systems`` charges stacked lam-path systems at the widened width
+    ``p * systems``, as the reference planner does. Pure arithmetic.
+    """
+    pol = resolve_precision(policy if policy is not None else "fp32")
+    if workspace_budget is None:
+        workspace_budget = _sweep_budget()
+    systems = max(systems, 1)
+    p = max(p, 1) * systems
+    nbi = -(-n // bm)
+    workspace = min(grid, nbi) * M * width * 4
+    base = dict(n=n, M=M, d=d, p=p, block_m=bm, block_n=bn, systems=systems,
+                scratch_bytes=scratch_bytes, io_bytes=workspace,
+                workspace_budget_bytes=workspace_budget,
+                input_dtype=pol.storage, accum_dtype=pol.accumulate)
+    if workspace <= workspace_budget:
+        return SweepPlan(
+            path="fused", shard_m=None,
+            reason=(f"fused w-partial workspace {workspace}B fits the "
+                    f"{workspace_budget}B device workspace budget"),
+            **base)
+    if shard_m is None:
+        shard_m = workspace_budget // (4 * (d + width))
+    shard_m = max(bn, (int(shard_m) // bn) * bn)
+    over = (f"fused w-partial workspace {workspace}B exceeds the "
+            f"{workspace_budget}B device workspace budget")
+    if shard_m >= M:
+        return SweepPlan(
+            path="two_pass", shard_m=None,
+            reason=f"{over}; single C-shard covers M={M} — two-pass sweep",
+            **base)
+    return SweepPlan(
+        path="j_sharded", shard_m=shard_m,
+        reason=(f"{over}; j-sharded sweep over {-(-M // shard_m)} C-shards "
+                f"of {shard_m} rows"),
+        **base)
+
+
 class SweepPlanWarning(UserWarning):
-    """Structured notice that a sweep left a backend's default path. Carries
-    the full ``SweepPlan`` as ``.plan``. No route of this port emits it yet:
-    the out-of-core routing it announces is ROADMAP.md item A9."""
+    """Structured notice that a sweep left the fused route: its w-partial
+    workspace passed the device budget and the B4 route (two_pass or
+    j_sharded) was chosen. Carries the full ``SweepPlan`` as ``.plan``."""
 
     def __init__(self, plan: SweepPlan):
         self.plan = plan
         super().__init__(
             f"falkon sweep (n={plan.n}, M={plan.M}, d={plan.d}, p={plan.p}): "
             f"taking the {plan.path!r} path — {plan.reason}")
+
+
+# ---------------------------------------------------------------------------
+# Factorization planning: in-core vs blocked (out-of-core) Cholesky
+# ---------------------------------------------------------------------------
+FACTOR_PATHS = ("incore", "blocked")
+
+#: Default budget for a DENSE in-core Cholesky factor, the reference's: past
+#: it ``plan_factor`` routes to the blocked right-looking Cholesky
+#: (``repro_torch.kernels.blocked_cholesky``), which keeps the matrix on the
+#: host and holds only O(b * M) panel bytes on the device. Override per
+#: process with ``REPRO_FACTOR_BUDGET_MB``.
+DEFAULT_FACTOR_BUDGET = 512 * 2**20
+
+#: Blocked-path tile bounds (multiples of 256), as the reference's.
+_FACTOR_BLOCK_MIN = 256
+_FACTOR_BLOCK_MAX = 2048
+
+
+def _factor_budget() -> int:
+    mb = os.environ.get("REPRO_FACTOR_BUDGET_MB")
+    return int(float(mb) * 2**20) if mb else DEFAULT_FACTOR_BUDGET
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorPlan:
+    """The Cholesky-path decision for one (M, M) factorization.
+
+    ``dense_bytes`` is what the in-core path keeps on the device;
+    ``panel_bytes`` is the blocked path's working set model, two (M, block)
+    panels; ``device_ceiling_bytes`` (3x that) is the bound its measured
+    device peak must stay under.
+    """
+
+    path: str                  # one of FACTOR_PATHS
+    M: int
+    block: int | None          # (b, b) tile side for the blocked path
+    itemsize: int              # bytes per element of the factor dtype
+    dense_bytes: int           # M * M * itemsize — in-core factor residency
+    panel_bytes: int           # 2 * block * M * itemsize — blocked working set
+    factor_budget_bytes: int
+    reason: str
+    tile_dtype: str = "float32"   # policy ``cholesky`` override (fp32 floor)
+
+    @property
+    def device_ceiling_bytes(self) -> int:
+        """3x the two-panel model: still O(b * M), never O(M^2)."""
+        return 3 * self.panel_bytes
+
+
+def plan_factor(M: int, *, itemsize: int = 4,
+                policy: "PrecisionPolicy | None" = None, block: int | None = None,
+                factor_budget: int | None = None) -> FactorPlan:
+    """Pick in-core vs blocked Cholesky from a dense-factor budget model.
+
+    The reference's arithmetic, field for field: in-core while
+    ``M^2 * itemsize`` fits the budget, else blocked with ``block`` sized so
+    two (M, block) panels fit it (multiples of 256, clamped to [256, 2048]).
+    """
+    if factor_budget is None:
+        factor_budget = _factor_budget()
+    tile_dtype = "float32"
+    if policy is not None:
+        tile_dtype = policy.buffer_dtype("cholesky")
+        itemsize = max(_ITEMSIZE[tile_dtype], 4)  # fp32 floor
+    dense = M * M * itemsize
+    if block is None:
+        block = factor_budget // max(2 * M * itemsize, 1)
+        block = (block // _FACTOR_BLOCK_MIN) * _FACTOR_BLOCK_MIN
+        block = max(_FACTOR_BLOCK_MIN, min(_FACTOR_BLOCK_MAX, block))
+    panel = 2 * block * M * itemsize
+    base = dict(M=M, itemsize=itemsize, dense_bytes=dense,
+                factor_budget_bytes=factor_budget, tile_dtype=tile_dtype)
+    if dense <= factor_budget:
+        return FactorPlan(
+            path="incore", block=None, panel_bytes=0,
+            reason=(f"dense factor {dense}B fits the {factor_budget}B "
+                    f"factor budget — in-core cholesky"),
+            **base)
+    return FactorPlan(
+        path="blocked", block=block, panel_bytes=panel,
+        reason=(f"dense factor {dense}B exceeds the {factor_budget}B factor "
+                f"budget — blocked right-looking cholesky over "
+                f"{-(-M // block)} panels of {block} columns "
+                f"(device working set ~{panel}B)"),
+        **base)
+
+
+class FactorPlanWarning(UserWarning):
+    """Structured notice that a factorization left the in-core path for the
+    blocked out-of-core Cholesky. Carries the full ``FactorPlan`` as ``.plan``."""
+
+    def __init__(self, plan: FactorPlan):
+        self.plan = plan
+        super().__init__(
+            f"falkon preconditioner (M={plan.M}): taking the {plan.path!r} "
+            f"factor path — {plan.reason}")
 
 
 @runtime_checkable

@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from .base import OpsBase, SweepPlan, register_ops
+from .base import OpsBase, SweepPlan, _sweep_budget, register_ops
 
 Tensor = torch.Tensor
 
@@ -88,8 +88,9 @@ class TorchKernelOps(OpsBase):
         pol = self.policy
         return SweepPlan(
             path="torch", n=n, M=M, d=d, p=p, systems=systems,
-            block_m=self.block_size, block_n=M,
-            scratch_bytes=4 * self.block_size * M,
+            block_m=self.block_size, block_n=M, shard_m=None,
+            scratch_bytes=4 * self.block_size * M, io_bytes=0,
+            workspace_budget_bytes=_sweep_budget(),
             input_dtype=pol.storage, accum_dtype=pol.accumulate,
             reason=(f"torch reference: loop over {self.block_size}-row "
                     f"blocks, O(block * M) live memory"))

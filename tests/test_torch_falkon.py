@@ -139,7 +139,9 @@ def test_port_fit_on_cpu():
         times = {}
         est, st = falkon_fit(torch.Generator().manual_seed(0), X, y,
                              FalkonConfig(**base, ops_impl=impl), ops=ops, stage_times=times)
-        assert set(times) == {"centers", "gram", "factor", "solve"}
+        assert set(times) == {"centers", "gram", "factor", "solve", "factor_path",
+                              "factor_block", "factor_stats"}
+        assert (times["factor_path"], times["factor_block"]) == ("incore", None)
         # 1 RHS sweep + t CG sweeps + 2 x (12 + 1) power-iteration sweeps
         assert (ops.sweeps, ops.grams) == (1 + T_ITERS + 26, 1)
         res = st.residual_norms

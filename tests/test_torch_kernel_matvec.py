@@ -147,7 +147,10 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch():
     km.fused_sweep(T(X), T(C), T(u), T(v), spec=spec)
     km.kernel_matmul(T(X), T(C), T(u), spec=spec)
     km.pairwise_kernel(T(X), T(C), spec=spec)
-    assert km.launch_counts() == {"fused_sweep": 0, "kernel_matmul": 0, "pairwise_kernel": 0}
+    km.sharded_sweep(T(X), T(C), T(u), T(v), spec=spec, shard_m=16)
+    assert km.launch_counts() == {
+        "fused_sweep": 0, "sharded_sweep": 0, "kernel_matmul": 0, "pairwise_kernel": 0,
+        "potrf_tile": 0, "trsm_panel": 0, "trailing_update": 0}
     with pytest.raises(ValueError, match="no kernel or plain path"):
         km.pairwise_kernel(T(X).to("meta"), T(C).to("meta"), spec=spec)
 

@@ -59,12 +59,13 @@ def test_registry_and_errors():
 def test_plans():
     kern = make_kernel("gaussian")
     plan = get_ops("cuda", kern).plan(4_000_000, 10_000, 18)
-    assert (plan.path, plan.block_m, plan.block_n) == ("two_eval", 64, 64)
+    assert (plan.path, plan.block_m, plan.block_n) == ("fused", 64, 64)
+    assert plan.shard_m is None and plan.io_bytes <= plan.workspace_budget_bytes
     assert plan.hbm_bytes == 4 * ((4_000_000 + 10_000) * 18 + 4_000_000 + 2 * 10_000)
     tplan = get_ops("torch", kern, block_size=512).plan(1000, 64, 5, p=2, systems=3)
     assert (tplan.path, tplan.p, tplan.systems) == ("torch", 6, 3)
     w = SweepPlanWarning(plan)
-    assert w.plan is plan and "two_eval" in str(w)
+    assert w.plan is plan and "fused" in str(w)
 
 
 @pytest.mark.parametrize("name,params", KERNELS)

@@ -18,6 +18,7 @@ from repro.core import preconditioner as jpc
 from repro_torch.convert import preconditioner_from_numpy
 from repro_torch.core import cg as tcg
 from repro_torch.core import preconditioner as tpc
+from repro_torch.ops import FactorPlanWarning
 
 ITER_TOL = FACTOR_TOL = MAP_TOL = 1e-5
 
@@ -146,10 +147,16 @@ def test_coeffs_inverts_beta_of_coeffs_full_rank():
 
 
 def test_factor_past_budget_refuses(monkeypatch):
-    monkeypatch.setenv("REPRO_FACTOR_BUDGET_MB", "0.001")
+    """A factor past the budget no longer raises: it routes to the blocked
+    Cholesky, warns with the plan, and gives the in-core factors."""
     K, _ = _kmm()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tpc.make_preconditioner(torch.from_numpy(K), 1e-3, 100)
+    ref = tpc.make_preconditioner(torch.from_numpy(K), 1e-3, 100)
+    monkeypatch.setenv("REPRO_FACTOR_BUDGET_MB", "0.001")
+    with pytest.warns(FactorPlanWarning) as rec:
+        P = tpc.make_preconditioner(torch.from_numpy(K), 1e-3, 100)
+    assert rec[0].message.plan.path == "blocked"
+    assert_close(P.T.numpy(), ref.T.numpy(), 1e-5)
+    assert_close(P.A.numpy(), ref.A.numpy(), 1e-5)
 
 
 def test_default_jitter_matches_reference():
