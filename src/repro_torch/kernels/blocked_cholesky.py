@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import time
 
 import torch
@@ -184,15 +183,14 @@ class _HostLink:
 # ---------------------------------------------------------------------------
 # B5-B7: wrappers (kernel on a CUDA tensor, plain twin on a CPU tensor)
 # ---------------------------------------------------------------------------
-@functools.cache
 def _lib():
     from repro_torch.kernels import build   # lazy: needs nvcc, only on the card
-    return build.load("blocked_cholesky")
+    return build.load()
 
 
 def _check(code: int, what: str) -> None:
     from repro_torch.kernels import build
-    build.check(code, what, "blocked_cholesky")
+    build.check(code, what)
 
 
 def potrf_plain(A: Tensor) -> Tensor:

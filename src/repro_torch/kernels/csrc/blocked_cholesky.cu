@@ -39,9 +39,10 @@
 //     be C itself (each entry is read and written by one thread).
 //
 // CUDA-core fmaf, IEEE division and sqrtf: no tensor cores (TF32 would
-// break the fp32 bound), no --use_fast_math. Plain C interface, loaded with
-// ctypes by repro_torch/kernels/build.py; every entry returns
-// cudaGetLastError() after its launch.
+// break the fp32 bound), no --use_fast_math. Plain C interface, linked by
+// repro_torch/kernels/build.py into one library with kernel_matvec.cu (whose
+// rt_error_string names the errors) and loaded with ctypes; every entry
+// returns cudaGetLastError() after its launch.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -234,8 +235,6 @@ __global__ void __launch_bounds__(UP_THREADS)
 }  // namespace rb
 
 extern "C" {
-
-const char* rb_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 int rb_potrf(const void* A, void* L, int b, void* stream) {
   rb::potrf_kernel<<<1, rb::POTRF_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
