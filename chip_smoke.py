@@ -18,8 +18,12 @@ result line:
                memory; B4 also against B1, with ragged shards.
 4. blocked  — the blocked Cholesky's tile kernels B5-B7 against their
                twins at the ragged test shapes, a 1280 tile and the last
-               80-wide panel's update (k = 1280); B5 on an indefinite tile
-               (NaN); ``blocked_cholesky`` on the "cuda" engine against the
+               80-wide panel's update (k = 1280); B5 at widths around its
+               64-wide sub-panels with NaN above the diagonal (L's strict
+               upper triangle must be exactly 0) and with non-positive
+               pivots (NaN from that column on, where its twin puts it); B7
+               at ragged tiles and k % 4 != 0, in place bit-equal;
+               ``blocked_cholesky`` on the "cuda" engine against the
                "torch" engine and a float64 factor.
 5. main     — the port's in-core fit (``falkon_fit``, ops_impl="cuda") on
                synthetic SUSY-shape data (d = 18, gaussian sigma = 4,
@@ -45,7 +49,8 @@ result line:
                in-core float32 (cuSOLVER) and float64 factors of the same
                matrices; B6 and B7 at the first panel's shapes against their
                twins; each kernel at its path's shapes (CUDA events) beside
-               its plain twin, its bound and its library call, then one
+               its plain twin, its bound and its library call; B5's device
+               operations per call by name (``torch.profiler``); then one
                ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -109,6 +114,15 @@ FACTOR_AGREE = 4.0
 #: (tests/test_blocked_cholesky.py, 2 panels of 256) and one with 4 panels
 #: and three rounds of trailing updates
 SMALL_BLOCKED = [(1500, 6, 320), (20_000, 6, 1024)]
+#: B5's tile widths: around its sub-panel width 64, ragged, and the path's 1280
+POTRF_SIZES = (1, 63, 64, 65, 80, 127, 192, 256, 1280)
+#: (b, column) of B5's indefinite pivots: column 0, inside a sub-panel, a
+#: sub-panel's last column, the last column of a ragged tile, and inside the
+#: first sub-panel of a ragged 96 tile
+BAD_PIVOTS = ((192, 0), (192, 100), (192, 127), (65, 64), (96, 48))
+#: (r, b, k) of B7's checks, each also in place
+UPDATE_SHAPES = ((80, 80, 1280), (44, 44, 256), (116, 116, 192), (4000, 1280, 1280),
+                 (1, 1, 1), (129, 127, 33), (300, 97, 1279), (1280, 1280, 64))
 #: limit of a float32 result's error per unit of the sum of the magnitudes
 #: of its terms (predict: max_i sum_j |K_ij alpha_j|; sweep: K^T K |u|):
 #: about two fp32 unit roundoffs (2^-24 = 6.0e-8)
@@ -323,10 +337,12 @@ def rel(a, b) -> float:
 
 
 def phase_blocked(torch):
-    """B5-B7 against their twins on the card, at the ragged test shapes and
-    at this slice's widths (a 1280 tile; the last, 80-wide panel's update
-    with k = 1280); B5 on an indefinite tile; the blocked factorization on
-    the "cuda" engine against the "torch" engine and a float64 factor."""
+    """B5-B7 against their twins on the card, at the ragged test shapes, at
+    the edges of B5's sub-panels and B7's tiles, and at this slice's widths
+    (a 1280 tile; the last, 80-wide panel's update with k = 1280); B5 with
+    garbage above the diagonal and on indefinite tiles; the blocked
+    factorization on the "cuda" engine against the "torch" engine and a
+    float64 factor."""
     from repro_torch.kernels import blocked_cholesky as bc
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(1)
@@ -339,20 +355,32 @@ def phase_blocked(torch):
         return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
 
     worst = 0.0
+    # B5 around its sub-panel width (64), ragged, and at the path's 1280, on
+    # tiles whose strict upper triangle is NaN: B5 reads the lower triangle
+    for b in POTRF_SIZES:
+        A = spd(b)
+        G = A.masked_fill(torch.ones(b, b, dtype=torch.bool, device=dev).triu(1), float("nan"))
+        L = bc.potrf_tile(G)
+        e5 = rel(L, bc.potrf_plain(A))
+        upper0 = torch.equal(L.triu(1), torch.zeros_like(L))
+        say(f"[blocked] B5 b={b} (NaN above the diagonal): vs twin {e5:.3e} (bound "
+            f"{FACTOR_TOL:g} normwise), strict upper triangle exactly 0: {upper0}")
+        check(e5 <= FACTOR_TOL and upper0, f"B5 off its twin at b={b}")
+        worst = max(worst, e5 / FACTOR_TOL)
     for b in (256, 192, 80, 1280):
         A = spd(b)
         L = bc.potrf_tile(A)
-        e5 = rel(L, bc.potrf_plain(A))
         Ap = randn(3 * b + 17, b)
         e6 = rel(bc.trsm_panel(L, Ap), bc.trsm_plain(L, Ap))
-        say(f"[blocked] b={b}: B5 vs twin {e5:.3e}, B6 (r={3 * b + 17}) vs twin {e6:.3e} "
+        say(f"[blocked] b={b}: B6 (r={3 * b + 17}) vs twin {e6:.3e} "
             f"(bound {FACTOR_TOL:g} normwise)")
-        check(e5 <= FACTOR_TOL and e6 <= FACTOR_TOL, f"B5/B6 off their twins at b={b}")
-        worst = max(worst, e5 / FACTOR_TOL, e6 / FACTOR_TOL)
+        check(e6 <= FACTOR_TOL, f"B6 off its twin at b={b}")
+        worst = max(worst, e6 / FACTOR_TOL)
     # B7 at the ragged shapes: (r, b, k) of the last update of M = 5x10^4
-    # (80, 80, 1280), of (M, block) = (300, 256) and (500, 192), and a full
-    # first-panel tile
-    for r, b, k in ((80, 80, 1280), (44, 44, 256), (116, 116, 192), (4000, 1280, 1280)):
+    # (80, 80, 1280), of (M, block) = (300, 256) and (500, 192), a full
+    # first-panel tile, one entry, ragged tiles with k % 4 != 0 (the
+    # scalar-load instantiation) and B5's sub-panel width k = 64
+    for r, b, k in UPDATE_SHAPES:
         C, P, Q = randn(r, b), randn(r, k), randn(b, k)
         ref = bc.update_plain(C, P, Q)
         out = bc.trailing_update(C, P, Q)
@@ -363,11 +391,19 @@ def phase_blocked(torch):
         say(f"[blocked] B7 r,b,k={r},{b},{k}: max abs err {abs_err:.3e}, ratio {ratio:.4f}")
         check(ratio <= 1.0, f"B7 off its twin at r,b,k={r},{b},{k} (ratio {ratio})")
         worst = max(worst, ratio)
-    A = spd(96)
-    A[48, 48] = -100.0
-    check(bool(torch.isnan(bc.potrf_tile(A)).any()), "B5 gave a finite factor of an indefinite tile")
-    check(bool(torch.isnan(bc.potrf_plain(A)).any()), "B5's twin gave a finite factor")
-    say("[blocked] B5 and its twin give NaN on an indefinite tile")
+    for b, col in BAD_PIVOTS:
+        A = spd(b)
+        A[col, col] = -100.0
+        L = bc.potrf_tile(A)
+        nan = torch.isnan(L)
+        low = torch.ones(b - col, b - col, dtype=torch.bool, device=dev).tril()
+        check(torch.equal(nan, torch.isnan(bc.potrf_plain(A))),
+              f"B5 and its twin put NaN in different places (b={b}, pivot {col})")
+        check(bool(torch.isfinite(L[:, :col]).all()) and bool(nan[col:, col:][low].all())
+              and torch.equal(L.triu(1), torch.zeros_like(L)),
+              f"B5 is not NaN from column {col} on and finite before it (b={b})")
+        say(f"[blocked] B5 b={b}, non-positive pivot at column {col}: NaN on and below the "
+            "diagonal from that column on, finite before it, as its twin")
     for M, block in ((300, 256), (500, 192), (260, 256), (3000, 1280)):
         K = spd(M).cpu()
         T64 = torch.linalg.cholesky(K.double()).mT
@@ -878,6 +914,7 @@ def msd_times(torch, msd) -> list[dict]:
     A = A @ A.T / blk + torch.eye(blk, device=DEVICE)
     L = bc.potrf_tile(A)
     e5 = float((L - bc.potrf_plain(A)).abs().max())
+    potrf_breakdown(torch, bc, A)
     b5, by5 = bound(blk ** 3 / 3, 4 * 2 * blk * blk)
     rows.append(dict(name="potrf_tile", ms=time_cuda(torch, lambda: bc.potrf_tile(A), 10),
                      plain_ms=time_cuda(torch, lambda: bc.potrf_plain(A), 2),
@@ -911,6 +948,28 @@ def msd_times(torch, msd) -> list[dict]:
                      library="torch.addmm", bound_ms=b7, bound_by=by7, max_abs_err=e7,
                      shape=f"r={r} b={blk} k={blk}"))
     return rows
+
+
+def potrf_breakdown(torch, bc, A) -> None:
+    """B5's device operations in one call, by name, with their summed
+    device time (``torch.profiler``): the blocked schedule's launches."""
+    from torch.profiler import ProfilerActivity, profile
+    bc.potrf_tile(A)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bc.potrf_tile(A)
+        torch.cuda.synchronize()
+    ops: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0].removeprefix("void ")
+            n_us = ops.setdefault(name, [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += e.time_range.elapsed_us()
+    total = sum(n for n, _ in ops.values())
+    say(f"[times] B5 b={A.shape[0]}: {total} device operations in one call: "
+        + ", ".join(f"{name} {n} ({us:.1f} us)" for name, (n, us) in ops.items()))
+    check(total > 0, "the profiler saw no device operation of B5")
 
 
 def rel_rows(a, b, rows: int = 2048) -> float:

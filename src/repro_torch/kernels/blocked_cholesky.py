@@ -208,9 +208,36 @@ def potrf_plain(A: Tensor) -> Tensor:
     return L
 
 
+#: B5's sub-panel width (``PO_NB`` in csrc/blocked_cholesky.cu)
+POTRF_NB = 64
+
+
+def potrf_blocked_plain(A: Tensor, nb: int = POTRF_NB) -> Tensor:
+    """Plain mirror of B5's schedule on the card, for the tests. Per
+    sub-panel of width ``nb``: the column recurrence on the diagonal block
+    (:func:`potrf_plain`), the panel below (:func:`trsm_plain`) and the
+    trailing lower triangle (:func:`update_plain`, nothing written above
+    the diagonal). The first sub-panel reads A's lower triangle, the rest
+    work in L, whose strict upper triangle stays 0."""
+    b = A.shape[0]
+    L = torch.zeros_like(A)
+    S = A
+    for s in range(0, b, nb):
+        e = min(s + nb, b)
+        L[s:e, s:e] = potrf_plain(S[s:e, s:e])
+        if e == b:
+            break
+        L[e:, s:e] = trsm_plain(L[s:e, s:e], S[e:, s:e])
+        L[e:, e:] = update_plain(S[e:, e:], L[e:, s:e], L[e:, s:e]).tril()
+        S = L
+    return L
+
+
 def potrf_tile(A: Tensor) -> Tensor:
     """B5: the lower Cholesky factor of one (b, b) tile (its lower triangle
-    is read); a non-positive pivot gives NaN from that column on."""
+    is read); a non-positive pivot gives NaN from that column on. On the
+    card it is a blocked factorization in sub-panels of ``POTRF_NB`` (see
+    :func:`potrf_blocked_plain`): one wrapper call, one launch counted."""
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"potrf_tile: expected a square tile, got {tuple(A.shape)}")
     if _route("potrf_tile", A) == "cpu":
@@ -271,7 +298,8 @@ def trailing_update(C: Tensor, P: Tensor, Q: Tensor, *, out: Tensor | None = Non
         out = torch.empty_like(C)
     _check_operands("trailing_update", C.device, C=C, P=P, Q=Q, out=out)
     with torch.cuda.device(C.device):
-        code = _lib().rb_update(_ptr(C), _ptr(P), _ptr(Q), _ptr(out), r, b, k,
+        # row strides of C and out, P, Q (contiguous), and lower = 0: the whole tile
+        code = _lib().rb_update(_ptr(C), _ptr(P), _ptr(Q), _ptr(out), r, b, k, b, k, k, 0,
                                 _stream(C.device))
         _check(code, "trailing_update")
         trailing_update.launches += 1

@@ -50,7 +50,7 @@ _SIGNATURES = {
     # blocked_cholesky.cu: B5-B7
     "rb_potrf": [_P, _P, _I, _P],
     "rb_trsm": [_P, _P, _P, _I, _I, _P],
-    "rb_update": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "rb_update": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -160,6 +160,44 @@ def test_potrf_twin_nan_from_the_bad_pivot_on():
     assert torch.isnan(L[17, 17]) and torch.isnan(L[18:, 17:].diagonal()).all()
 
 
+def _upper_garbage(A):
+    """A copy of A with NaN above the diagonal: B5 reads the lower triangle."""
+    G = A.copy()
+    G[np.triu_indices(A.shape[0], 1)] = np.nan
+    return G
+
+
+@pytest.mark.parametrize("b", [80, 192, 257])
+def test_potrf_blocked_schedule_matches_twin_and_reference(b):
+    """B5's sub-panel schedule (nb = 64, ragged last sub-panel) against the
+    column recurrence and the reference's Pallas kernel (interpret mode);
+    it reads A's lower triangle only and leaves L's strict upper triangle 0."""
+    A = _spd(b, seed=b + 1)
+    L = bc.potrf_blocked_plain(torch.from_numpy(_upper_garbage(A)), nb=64)
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert _rel(L, bc.potrf_plain(torch.from_numpy(A))) < FACTOR_TOL
+    assert _rel(L, jbc._pallas_potrf(jnp.asarray(A), interpret=True)) < FACTOR_TOL
+    assert _rel(L, np.linalg.cholesky(A.astype(np.float64))) < FACTOR_TOL
+
+
+@pytest.mark.parametrize("b,col", [(80, 0), (192, 100), (192, 127), (257, 64), (257, 256)])
+def test_potrf_blocked_schedule_nan_from_the_bad_pivot_on(b, col):
+    """An indefinite pivot at column 0, inside a sub-panel, on a sub-panel's
+    last column, on a sub-panel's first and on a ragged tile's last: NaN on
+    and below the diagonal from that column on, finite before it, exactly
+    where the column recurrence and the reference's kernel put it."""
+    A = _spd(b, seed=b + col)
+    A[col, col] = -100.0
+    L = bc.potrf_blocked_plain(torch.from_numpy(_upper_garbage(A)), nb=64)
+    nan = torch.isnan(L)
+    assert torch.equal(nan, torch.isnan(bc.potrf_plain(torch.from_numpy(A))))
+    ref = np.asarray(jbc._pallas_potrf(jnp.asarray(A), interpret=True))
+    assert torch.equal(nan, torch.from_numpy(np.isnan(ref)))
+    assert torch.isfinite(L[:, :col]).all()
+    assert nan[col:, col:][torch.ones(b - col, b - col, dtype=torch.bool).tril()].all()
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+
+
 @pytest.mark.parametrize("b", [40, 128, 200])
 def test_tile_twins_match_reference_pallas_kernels(b):
     """B5-B7's twins against the reference's Pallas tile kernels (interpret
