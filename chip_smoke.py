@@ -21,7 +21,12 @@ result line:
                80-wide panel's update (k = 1280); B5 at widths around its
                64-wide sub-panels with NaN above the diagonal (L's strict
                upper triangle must be exactly 0) and with non-positive
-               pivots (NaN from that column on, where its twin puts it); B7
+               pivots (NaN from that column on, where its twin puts it); B6
+               at widths around its 128-wide column blocks, ragged, at
+               r = 1, 17, 3b + 17, with NaN above L's diagonal, two runs
+               bit-equal, with NaN pivots (NaN from that column on, finite
+               before it, as its twin), and its quotients bit for bit against
+               torch's division; B7
                at ragged tiles and k % 4 != 0, in place bit-equal;
                ``blocked_cholesky`` on the "cuda" engine against the
                "torch" engine and a float64 factor.
@@ -48,10 +53,10 @@ result line:
                twins; the MillionSongs fit's blocked T and A against
                in-core float32 (cuSOLVER) and float64 factors of the same
                matrices; B6 and B7 at the first panel's shapes against their
-               twins; each kernel at its path's shapes (CUDA events) beside
-               its plain twin, its bound and its library call; B5's device
-               operations per call by name (``torch.profiler``); then one
-               ``kernels`` JSON line.
+               twins (B6 twice, bit-equal); each kernel at its path's shapes
+               (CUDA events) beside its plain twin, its bound and its library
+               call; B5's and B6's device operations per call by name
+               (``torch.profiler``); then one ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -120,6 +125,19 @@ POTRF_SIZES = (1, 63, 64, 65, 80, 127, 192, 256, 1280)
 #: sub-panel's last column, the last column of a ragged tile, and inside the
 #: first sub-panel of a ragged 96 tile
 BAD_PIVOTS = ((192, 0), (192, 100), (192, 127), (65, 64), (96, 48))
+#: B6's panel widths: around its 128-wide column blocks and their halves
+#: (B5's panels are 64 wide), ragged, and the path's 1280; each at r = 1, 17
+#: and 3b + 17 rows
+TRSM_WIDTHS = (1, 31, 63, 64, 65, 80, 127, 128, 129, 192, 256, 257, 1280)
+#: (b, column) of NaN pivots on B6's L: the first column, inside a column
+#: block, the first block's last column, the second's, and the last column
+#: of a ragged panel
+TRSM_BAD_PIVOTS = ((300, 0), (300, 100), (300, 127), (300, 255), (257, 256))
+#: B6's quotients against torch's division, bit for bit (b = 1: X = A / L):
+#: divisors and dividends of random sign, mantissa and exponent in
+#: [-DIV_EXP, DIV_EXP] (so quotients also overflow, turn subnormal and
+#: underflow), with zeros, subnormals, infinities and NaN
+DIV_DIVISORS, DIV_ROWS, DIV_EXP = 64, 1 << 20, 80
 #: (r, b, k) of B7's checks, each also in place
 UPDATE_SHAPES = ((80, 80, 1280), (44, 44, 256), (116, 116, 192), (4000, 1280, 1280),
                  (1, 1, 1), (129, 127, 33), (300, 97, 1279), (1280, 1280, 64))
@@ -338,11 +356,11 @@ def rel(a, b) -> float:
 
 def phase_blocked(torch):
     """B5-B7 against their twins on the card, at the ragged test shapes, at
-    the edges of B5's sub-panels and B7's tiles, and at this slice's widths
-    (a 1280 tile; the last, 80-wide panel's update with k = 1280); B5 with
-    garbage above the diagonal and on indefinite tiles; the blocked
-    factorization on the "cuda" engine against the "torch" engine and a
-    float64 factor."""
+    the edges of B5's sub-panels, B6's column blocks and B7's tiles, and at
+    this slice's widths (a 1280 tile; the last, 80-wide panel's update with
+    k = 1280); B5 and B6 with garbage above the diagonal and with bad
+    pivots; the blocked factorization on the "cuda" engine against the
+    "torch" engine and a float64 factor."""
     from repro_torch.kernels import blocked_cholesky as bc
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(1)
@@ -354,28 +372,73 @@ def phase_blocked(torch):
     def randn(*shape):
         return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
 
+    def upper_nan(A):
+        b = A.shape[0]
+        return A.masked_fill(torch.ones(b, b, dtype=torch.bool, device=dev).triu(1),
+                             float("nan"))
+
     worst = 0.0
     # B5 around its sub-panel width (64), ragged, and at the path's 1280, on
     # tiles whose strict upper triangle is NaN: B5 reads the lower triangle
     for b in POTRF_SIZES:
         A = spd(b)
-        G = A.masked_fill(torch.ones(b, b, dtype=torch.bool, device=dev).triu(1), float("nan"))
-        L = bc.potrf_tile(G)
+        L = bc.potrf_tile(upper_nan(A))
         e5 = rel(L, bc.potrf_plain(A))
         upper0 = torch.equal(L.triu(1), torch.zeros_like(L))
         say(f"[blocked] B5 b={b} (NaN above the diagonal): vs twin {e5:.3e} (bound "
             f"{FACTOR_TOL:g} normwise), strict upper triangle exactly 0: {upper0}")
         check(e5 <= FACTOR_TOL and upper0, f"B5 off its twin at b={b}")
         worst = max(worst, e5 / FACTOR_TOL)
-    for b in (256, 192, 80, 1280):
-        A = spd(b)
-        L = bc.potrf_tile(A)
+    # B6 around its 128-wide column blocks, ragged, and at the path's 1280,
+    # with NaN above L's diagonal: B6 reads the lower triangle, as the
+    # reference's jnp.tril(L)
+    for b in TRSM_WIDTHS:
+        L = upper_nan(bc.potrf_tile(spd(b)))
+        for r in (1, 17, 3 * b + 17):
+            Ap = randn(r, b)
+            X = bc.trsm_panel(L, Ap)
+            again = torch.equal(X, bc.trsm_panel(L, Ap))
+            e6 = rel(X, bc.trsm_plain(L, Ap))
+            say(f"[blocked] B6 r={r} b={b} (NaN above the diagonal): vs twin {e6:.3e} (bound "
+                f"{FACTOR_TOL:g} normwise), two runs bit-equal: {again}")
+            check(e6 <= FACTOR_TOL and again,
+                  f"B6 off its twin or not deterministic at r={r} b={b}")
+            worst = max(worst, e6 / FACTOR_TOL)
+    for b, col in TRSM_BAD_PIVOTS:
+        L = upper_nan(bc.potrf_tile(spd(b)))
+        L[col, col] = float("nan")
         Ap = randn(3 * b + 17, b)
-        e6 = rel(bc.trsm_panel(L, Ap), bc.trsm_plain(L, Ap))
-        say(f"[blocked] b={b}: B6 (r={3 * b + 17}) vs twin {e6:.3e} "
-            f"(bound {FACTOR_TOL:g} normwise)")
-        check(e6 <= FACTOR_TOL, f"B6 off its twin at b={b}")
-        worst = max(worst, e6 / FACTOR_TOL)
+        X = bc.trsm_panel(L, Ap)
+        check(torch.equal(torch.isnan(X), torch.isnan(bc.trsm_plain(L, Ap))),
+              f"B6 and its twin put NaN in different places (b={b}, pivot {col})")
+        check(bool(torch.isnan(X[:, col:]).all()) and bool(torch.isfinite(X[:, :col]).all()),
+              f"B6 is not NaN from column {col} on and finite before it (b={b})")
+        say(f"[blocked] B6 b={b}, NaN pivot at column {col}: NaN from that column on, finite "
+            "before it, as its twin")
+    # B6 divides as IEEE division does: its quotients bit for bit against
+    # torch's elementwise a / b (a CUDA tensor divisor, never a scalar's
+    # reciprocal), NaN where torch has NaN
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def floats(n):
+        mant = torch.rand(n, generator=gen, device=dev) + 1.0
+        exp = torch.randint(-DIV_EXP, DIV_EXP + 1, (n,), generator=gen, device=dev)
+        sign = torch.randint(0, 2, (n,), generator=gen, device=dev) * 2.0 - 1.0
+        v = sign * mant * torch.exp2(exp.float())
+        v[:8] = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-40,
+                              -1e-45, 3.0e38], device=dev)
+        return v
+
+    A1 = floats(DIV_ROWS)[:, None]
+    for d in floats(DIV_DIVISORS):
+        L1 = d.reshape(1, 1)
+        X1, ref = bc.trsm_panel(L1, A1), A1 / L1.expand_as(A1)
+        nan = torch.isnan(ref)
+        check(torch.equal(torch.isnan(X1), nan)
+              and torch.equal(X1[~nan].view(torch.int32), ref[~nan].view(torch.int32)),
+              f"B6's quotients by {float(d)!r} differ from torch's division")
+    say(f"[blocked] B6 b=1: {DIV_DIVISORS} divisors x {DIV_ROWS} dividends bit-equal to torch's "
+        "division")
     # B7 at the ragged shapes: (r, b, k) of the last update of M = 5x10^4
     # (80, 80, 1280), of (M, block) = (300, 256) and (500, 192), a full
     # first-panel tile, one entry, ragged tiles with k % 4 != 0 (the
@@ -914,7 +977,7 @@ def msd_times(torch, msd) -> list[dict]:
     A = A @ A.T / blk + torch.eye(blk, device=DEVICE)
     L = bc.potrf_tile(A)
     e5 = float((L - bc.potrf_plain(A)).abs().max())
-    potrf_breakdown(torch, bc, A)
+    breakdown(torch, f"B5 b={blk}", lambda: bc.potrf_tile(A))
     b5, by5 = bound(blk ** 3 / 3, 4 * 2 * blk * blk)
     rows.append(dict(name="potrf_tile", ms=time_cuda(torch, lambda: bc.potrf_tile(A), 10),
                      plain_ms=time_cuda(torch, lambda: bc.potrf_plain(A), 2),
@@ -925,7 +988,9 @@ def msd_times(torch, msd) -> list[dict]:
     P = randn(r, blk)
     X6, X6p = bc.trsm_panel(L, P), bc.trsm_plain(L, P)
     e6, n6 = float((X6 - X6p).abs().max()), rel(X6, X6p)
+    same6 = torch.equal(X6, bc.trsm_panel(L, P))
     del X6, X6p
+    breakdown(torch, f"B6 r={r} b={blk}", lambda: bc.trsm_panel(L, P), each=True)
     b6, by6 = bound(r * blk * blk, 4 * (blk * blk + 2 * r * blk))
     rows.append(dict(name="trsm_panel", ms=time_cuda(torch, lambda: bc.trsm_panel(L, P), 5),
                      plain_ms=time_cuda(torch, lambda: bc.trsm_plain(L, P), 1),
@@ -937,9 +1002,10 @@ def msd_times(torch, msd) -> list[dict]:
     O7, O7p = bc.trailing_update(Cu, Pu, Qu), bc.update_plain(Cu, Pu, Qu)
     e7, n7 = float((O7 - O7p).abs().max()), rel(O7, O7p)
     del O7, O7p
-    say(f"[times] B6 r={r} b={blk} vs twin {n6:.3e}, B7 r={r} b=k={blk} vs twin {n7:.3e} "
-        f"(normwise, bound {FACTOR_TOL:g})")
-    check(n6 <= FACTOR_TOL and n7 <= FACTOR_TOL, f"B6/B7 off their twins at r={r} b={blk}")
+    say(f"[times] B6 r={r} b={blk} vs twin {n6:.3e} (two runs bit-equal: {same6}), B7 "
+        f"r={r} b=k={blk} vs twin {n7:.3e} (normwise, bound {FACTOR_TOL:g})")
+    check(n6 <= FACTOR_TOL and n7 <= FACTOR_TOL and same6,
+          f"B6/B7 off their twins at r={r} b={blk}, or B6 not deterministic")
     b7, by7 = bound(2 * r * blk * blk, 4 * (2 * r * blk + r * blk + blk * blk))
     rows.append(dict(name="trailing_update",
                      ms=time_cuda(torch, lambda: bc.trailing_update(Cu, Pu, Qu), 5),
@@ -950,26 +1016,29 @@ def msd_times(torch, msd) -> list[dict]:
     return rows
 
 
-def potrf_breakdown(torch, bc, A) -> None:
-    """B5's device operations in one call, by name, with their summed
-    device time (``torch.profiler``): the blocked schedule's launches."""
+def breakdown(torch, tag: str, fn, each: bool = False) -> None:
+    """One call's device operations, by name, with their summed device time
+    (``torch.profiler``): a blocked schedule's launches; ``each`` also lists
+    every launch's time in launch order."""
     from torch.profiler import ProfilerActivity, profile
-    bc.potrf_tile(A)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        bc.potrf_tile(A)
+        fn()
         torch.cuda.synchronize()
     ops: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.split("(")[0].removeprefix("void ")
-            n_us = ops.setdefault(name, [0, 0.0])
-            n_us[0] += 1
-            n_us[1] += e.time_range.elapsed_us()
-    total = sum(n for n, _ in ops.values())
-    say(f"[times] B5 b={A.shape[0]}: {total} device operations in one call: "
-        + ", ".join(f"{name} {n} ({us:.1f} us)" for name, (n, us) in ops.items()))
-    check(total > 0, "the profiler saw no device operation of B5")
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        name = e.name.split("(")[0].removeprefix("void ")
+        ops.setdefault(name, []).append(e.time_range.elapsed_us())
+    total = sum(len(us) for us in ops.values())
+    say(f"[times] {tag}: {total} device operations in one call: "
+        + ", ".join(f"{name} {len(us)} ({sum(us):.1f} us)" for name, us in ops.items()))
+    if each:
+        for name, us in ops.items():
+            say(f"[times] {tag}: {name} launch by launch (us): "
+                + " ".join(f"{u:.1f}" for u in us))
+    check(total > 0, f"the profiler saw no device operation of {tag}")
 
 
 def rel_rows(a, b, rows: int = 2048) -> float:

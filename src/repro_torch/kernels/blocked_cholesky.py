@@ -260,8 +260,27 @@ def trsm_plain(L: Tensor, A: Tensor) -> Tensor:
     return X
 
 
+#: B6's column-block width (``TD_W`` in csrc/blocked_cholesky.cu)
+TRSM_NB = 128
+
+
+def trsm_blocked_plain(L: Tensor, A: Tensor, nb: int = TRSM_NB) -> Tensor:
+    """Plain mirror of B6's schedule on the card, for the tests. Per column
+    block J of width ``nb``: X[:, J] = A[:, J] - X[:, :J0] L[J, :J0]^T
+    (:func:`update_plain`), then the forward substitution on L[J, J]
+    (:func:`trsm_plain`). Reads L's lower triangle only."""
+    X = torch.empty_like(A)
+    for J0 in range(0, L.shape[0], nb):
+        J = slice(J0, J0 + nb)
+        X[:, J] = trsm_plain(L[J, J], update_plain(A[:, J], X[:, :J0], L[J, :J0]))
+    return X
+
+
 def trsm_panel(L: Tensor, A: Tensor) -> Tensor:
-    """B6: X = A L^{-T} for a lower (b, b) L and an (r, b) panel A."""
+    """B6: X = A L^{-T} for a lower (b, b) L and an (r, b) panel A (its
+    lower triangle is read). On the card it is a blocked solve in column
+    blocks of ``TRSM_NB`` (see :func:`trsm_blocked_plain`): one wrapper
+    call, one launch counted."""
     r, b = A.shape
     if L.shape != (b, b):
         raise ValueError(f"trsm_panel: L {tuple(L.shape)} does not match A {tuple(A.shape)}")

@@ -29,7 +29,8 @@
 //     Each output is read and written by one thread, in one k order: O may
 //     be C itself, and the result is deterministic (no split-K). Leading
 //     dimensions and a `lower` flag (skip tiles wholly above the diagonal,
-//     write nothing above it) let B5 run it on sub-blocks of a tile.
+//     write nothing above it) let B5 run it on sub-blocks of a tile. Its
+//     main loop, product_tile, is also B6's product.
 //
 // B5  rb_potrf       L = chol(A) of one (b, b) tile, lower, row-major.
 //     Replaces blocked_cholesky.py::_pallas_potrf / _potrf_kernel. Bound:
@@ -43,7 +44,8 @@
 //           into shared memory and runs the Pallas body's column recurrence
 //           there, v = a - L l^T, d = sqrt(v_j) (NaN for a non-positive
 //           pivot, never clamped), column = [0; d; v_below / d];
-//       (b) trsm_kernel (B6's device kernel) on the panel below, in place;
+//       (b) B6 (launch_trsm) on the panel below, in place: one
+//           trsm_block_kernel launch, the panel being 64 wide;
 //       (c) update_kernel (B7's) with `lower` on the trailing lower
 //           triangle, k = NB.
 //     The first sub-panel reads A and writes L, the others work in L, so
@@ -51,19 +53,38 @@
 //     nothing writes above its diagonal. A bad pivot's NaN enters every
 //     later column through (b) and (c), as in the column recurrence.
 //     Launches per call: 1 memset and 3 * ceil(b / NB) - 2 kernels (58 at
-//     b = 1280; the last sub-panel has no panel below).
+//     b = 1280; the last sub-panel has no panel below): B6 is one launch on
+//     each 64-wide panel.
 //
-// B6  trsm_kernel    X = A L^-T of an (r, b) panel (solve X L^T = A).
+// B6  launch_trsm   X = A L^-T of an (r, b) panel (solve X L^T = A).
 //     Replaces blocked_cholesky.py::_pallas_trsm / _trsm_kernel. Bound:
 //     r*b^2 flops against 67 TFLOP/s (fp32 FMA issue); the bytes (A read, X
-//     written once) are 10x smaller at b = 1280. Design: rows are
-//     independent, so each block owns 64 rows and walks the columns in
-//     chunks of 32: the chunk's right side A[:, J] minus X[:, :J] L[J, :J]^T
-//     is a shared-memory-tiled product (X's finished columns and L's rows
-//     staged 32 wide), then 64 threads solve the 32 x 32 diagonal triangle
-//     by forward substitution in shared memory and the chunk is stored. X
-//     may be A (B5's panels): each block reads a chunk of A before it
-//     writes that chunk, and no other block touches its rows.
+//     written once) are 10x smaller at b = 1280. All but r*b*128/2 of the
+//     r*b^2/2 FMAs are products of solved columns with L's rows, an SGEMM
+//     bound like B7 by FFMA issue. The rest is the forward substitution,
+//     serial along each row: a chain of b IEEE divisions, each behind a
+//     branch to its slow path, which a one-thread-a-row walk can neither
+//     feed (a shared load for every four FMAs) nor hide. Design: a
+//     left-looking blocked solve, one launch of trsm_block_kernel a column
+//     block J of 128 columns, in order on one stream (no synchronisation,
+//     no allocation). A block of 256 threads owns 128 rows of X[:, J]:
+//       (a) X[:, :J0] L[J, :J0]^T on B7's product_tile (its main loop,
+//           shared device code) into B7's 8 x 8 register layout, and A[:, J]
+//           minus that, in registers;
+//       (b) the 128 x 128 tile solved there, right-looking in sub-blocks of
+//           16 columns: 128 threads, one row each, substitute the
+//           sub-block's 16 x 16 triangle in shared memory and store it to
+//           X, then every thread subtracts its rank-16 product from its
+//           later columns with B7's float4 loads (64 FMAs for four). L's
+//           block is staged once, transposed, its strictly lower part only.
+//     Fusing (a) and (b) keeps X[:, J] out of device memory between the two
+//     and lets one block's product run beside another's substitution on an
+//     SM. Launches per call: ceil(b / 128) (10 at b = 1280); one for B5's
+//     64-wide panels. X may be A (B5's panels): a block reads its rows of A
+//     before it writes them, and the product reads only X's finished
+//     columns. L's strict upper triangle is never read; a NaN pivot gives
+//     NaN in its column and, through (b)'s updates and later blocks' (a), in
+//     every later one, as in the twin. Deterministic: no atomics, no split-K.
 //
 // CUDA-core fmaf, IEEE division and sqrtf: no tensor cores (TF32 would
 // break the fp32 bound), no --use_fast_math. Plain C interface, linked by
@@ -125,24 +146,16 @@ __device__ __forceinline__ void store_slice(float (*s)[UP_LDS], const float (&v)
   }
 }
 
-// O and C may alias: neither is __restrict__.
+// acc = P[r0 : r0 + 128, 0:k] Q[c0 : c0 + 128, 0:k]^T, rows past r and b
+// read as 0: this thread's 8 x 8 share, rows ty*4 + i and UP_HALF + ty*4 + i,
+// columns tx*4 + j and UP_HALF + tx*4 + j. ps and qs hold two k-slices
+// each; they are free again when it returns (it ends on a barrier).
 template <bool VEC>
-__global__ void __launch_bounds__(UP_THREADS, 2)
-    update_kernel(const float* C, float* O, int ldc, const float* __restrict__ P, int ldp,
-                  const float* __restrict__ Q, int ldq, int r, int b, int k, int lower) {
-  __shared__ __align__(16) float ps[2][UP_BK][UP_LDS];
-  __shared__ __align__(16) float qs[2][UP_BK][UP_LDS];
-  const int r0 = blockIdx.y * UP_TILE;
-  const int c0 = blockIdx.x * UP_TILE;
-  if (lower && c0 > r0 + UP_TILE - 1) return;   // wholly above the diagonal
-  // a warp covers 4 x 8 threads: 64 rows of P and 128 columns of Q per k
-  // step, so its float4 reads of a slice are 4 and 8 distinct addresses
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int ty = (warp / 2) * 4 + lane / 8;    // rows ty*4 + i, UP_HALF + ty*4 + i
-  const int tx = (warp % 2) * 8 + lane % 8;    // columns tx*4 + j, UP_HALF + tx*4 + j
-
-  float acc[8][8];
+__device__ __forceinline__ void product_tile(const float* __restrict__ P, int ldp,
+                                             const float* __restrict__ Q, int ldq, int r, int b,
+                                             int k, int r0, int c0, int ty, int tx,
+                                             float (*ps)[UP_BK][UP_LDS],
+                                             float (*qs)[UP_BK][UP_LDS], float (&acc)[8][8]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -182,6 +195,26 @@ __global__ void __launch_bounds__(UP_THREADS, 2)
     __syncthreads();
     buf ^= 1;
   }
+}
+
+// O and C may alias: neither is __restrict__.
+template <bool VEC>
+__global__ void __launch_bounds__(UP_THREADS, 2)
+    update_kernel(const float* C, float* O, int ldc, const float* __restrict__ P, int ldp,
+                  const float* __restrict__ Q, int ldq, int r, int b, int k, int lower) {
+  __shared__ __align__(16) float ps[2][UP_BK][UP_LDS];
+  __shared__ __align__(16) float qs[2][UP_BK][UP_LDS];
+  const int r0 = blockIdx.y * UP_TILE;
+  const int c0 = blockIdx.x * UP_TILE;
+  if (lower && c0 > r0 + UP_TILE - 1) return;   // wholly above the diagonal
+  // a warp covers 4 x 8 threads: 64 rows of P and 128 columns of Q per k
+  // step, so its float4 reads of a slice are 4 and 8 distinct addresses
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int ty = (warp / 2) * 4 + lane / 8;
+  const int tx = (warp % 2) * 8 + lane % 8;
+  float acc[8][8];
+  product_tile<VEC>(P, ldp, Q, ldq, r, b, k, r0, c0, ty, tx, ps, qs, acc);
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -228,93 +261,226 @@ cudaError_t launch_update(const float* C, float* O, int ldc, const float* P, int
 // ---------------------------------------------------------------------------
 // B6: X = A L^-T
 // ---------------------------------------------------------------------------
-constexpr int TR_ROWS = 64;   // rows of X per block
-constexpr int TR_COLS = 32;   // columns solved per chunk
-constexpr int TR_THREADS = 256;
-constexpr int TR_RY = TR_THREADS / TR_COLS;   // 8 row groups
-constexpr int TR_RM = TR_ROWS / TR_RY;        // 8 rows per thread
+constexpr int TD_W = 128;        // column block: one launch
+constexpr int TD_ROWS = 128;     // rows of X a thread block
+constexpr int TD_SUB = 16;       // columns substituted between two rank-16 updates
+constexpr int TD_THREADS = 256;
+constexpr int TD_LDS = TD_W + 4;     // padded row of the shared tiles
+constexpr int TD_FILL = 16;          // loads in flight a thread while L is staged
+static_assert(TD_W * TD_W % (TD_FILL * TD_THREADS) == 0, "staging loop");
+static_assert(TD_ROWS == UP_TILE && TD_W == UP_TILE && TD_LDS == UP_LDS &&
+                  TD_THREADS == UP_THREADS && 2 * TD_SUB == 2 * 2 * UP_BK,
+              "a column block is one of B7's tiles; xs holds its k-slice buffers");
+// lt[k][c] (TD_W rows), two xs[k][row] buffers (TD_SUB rows each), dg
+constexpr int TD_SMEM = (TD_W * TD_LDS + 2 * TD_SUB * TD_LDS + TD_W) * (int)sizeof(float);
 
-// A and X may alias, so neither is __restrict__; the block reads back the
-// columns of X it wrote. PACKED: every row stride is b (B6's own panels),
-// known to the compiler, whose index arithmetic is then measurably cheaper
-// than with three run-time strides (B5's sub-panels).
-template <bool PACKED>
-__global__ void __launch_bounds__(TR_THREADS)
-    trsm_kernel(const float* __restrict__ L, int ldl, const float* A, int lda, float* X,
-                int ldx, int r, int b) {
-  if (PACKED) ldl = lda = ldx = b;
-  __shared__ float xs[TR_ROWS][TR_COLS + 1];
-  __shared__ float ls[TR_COLS][TR_COLS + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % TR_COLS;
-  const int ty = tid / TR_COLS;
-  const int r0 = blockIdx.x * TR_ROWS;
-  for (int J0 = 0; J0 < b; J0 += TR_COLS) {
-    const int col = J0 + tx;
-    float acc[TR_RM];
+// acc -= x L^T over one sub-block: x = xb[k][rows] (k < TD_SUB), L^T's rows
+// from lt0 (lt + s0); LO and HI select the column halves still to solve.
+template <bool LO, bool HI>
+__device__ __forceinline__ void td_update(float (&acc)[8][8], const float (*xb)[TD_LDS],
+                                          const float (*lt0)[TD_LDS], int ty, int tx) {
 #pragma unroll
-    for (int i = 0; i < TR_RM; ++i) {
-      const int row = r0 + ty + TR_RY * i;
-      acc[i] = (row < r && col < b) ? A[(size_t)row * lda + col] : 0.0f;
-    }
-    // acc -= X[:, :J0] L[J0:J0+32, :J0]^T, 32 columns of k at a time
-    for (int k0 = 0; k0 < J0; k0 += TR_COLS) {
-      for (int e = tid; e < TR_ROWS * TR_COLS; e += TR_THREADS) {
-        const int rr = e / TR_COLS;
-        const int kk = e - rr * TR_COLS;
-        const int row = r0 + rr;
-        xs[rr][kk] = row < r ? X[(size_t)row * ldx + k0 + kk] : 0.0f;
-      }
-      for (int e = tid; e < TR_COLS * TR_COLS; e += TR_THREADS) {
-        const int c = e / TR_COLS;
-        const int kk = e - c * TR_COLS;
-        ls[c][kk] = J0 + c < b ? L[(size_t)(J0 + c) * ldl + k0 + kk] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < TR_COLS; ++kk) {
-        const float lv = ls[tx][kk];
+  for (int kk = 0; kk < TD_SUB; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(&xb[kk][ty * 4]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&xb[kk][64 + ty * 4]);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-        for (int i = 0; i < TR_RM; ++i) acc[i] = fmaf(-xs[ty + TR_RY * i][kk], lv, acc[i]);
-      }
-      __syncthreads();
-    }
-    // the 32 x 32 diagonal triangle, by forward substitution
+    for (int h = 0; h < 2; ++h) {
+      if (h == 0 ? !LO : !HI) continue;
+      const float4 b = *reinterpret_cast<const float4*>(&lt0[kk][h * 64 + tx * 4]);
+      const float q[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int i = 0; i < TR_RM; ++i) xs[ty + TR_RY * i][tx] = acc[i];
-    for (int e = tid; e < TR_COLS * TR_COLS; e += TR_THREADS) {
-      const int c = e / TR_COLS;
-      const int cc = e - c * TR_COLS;
-      ls[c][cc] = (J0 + c < b && J0 + cc < b) ? L[(size_t)(J0 + c) * ldl + J0 + cc] : 0.0f;
-    }
-    __syncthreads();
-    const int width = min(TR_COLS, b - J0);
-    if (tid < TR_ROWS) {
-      for (int c = 0; c < width; ++c) {
-        float x = xs[tid][c];
-        for (int cc = 0; cc < c; ++cc) x = fmaf(-xs[tid][cc], ls[c][cc], x);
-        xs[tid][c] = x / ls[c][c];
-      }
-    }
-    __syncthreads();
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int i = 0; i < TR_RM; ++i) {
-      const int row = r0 + ty + TR_RY * i;
-      if (row < r && col < b) X[(size_t)row * ldx + col] = xs[ty + TR_RY * i][tx];
+        for (int j = 0; j < 4; ++j) acc[i][h * 4 + j] = fmaf(-a[i], q[j], acc[i][h * 4 + j]);
     }
-    __syncthreads();  // X's new columns are read by the next chunk's staging
   }
 }
 
-cudaError_t launch_trsm(const float* L, int ldl, const float* A, int lda, float* X, int ldx,
-                        int r, int b, cudaStream_t stream) {
-  const int blocks = (r + TR_ROWS - 1) / TR_ROWS;
-  if (ldl == b && lda == b && ldx == b) {
-    trsm_kernel<true><<<blocks, TR_THREADS, 0, stream>>>(L, ldl, A, lda, X, ldx, r, b);
-  } else {
-    trsm_kernel<false><<<blocks, TR_THREADS, 0, stream>>>(L, ldl, A, lda, X, ldx, r, b);
+// One column block of B6: X[:, k : k + w] = (S - X[:, 0:k] Lr[:, 0:k]^T)
+// Lr[:, k : k + w]^-T, where Lr is the block's w rows of L (w <= TD_W), S
+// the block's columns of A and k the block's first column; TD_ROWS rows a
+// block. The product runs on B7's product_tile into the same 8 x 8 register
+// layout, and the tile is solved there, right-looking in sub-blocks of
+// TD_SUB columns. Per sub-block: (1) the threads holding its 16 columns write
+// them to shared memory, k-major; (2) 128 threads, one row each, run the
+// Pallas body's forward substitution x_j = (s_j - sum_c x_c L[j][c]) /
+// L[j][j] on the 16 x 16 triangle and store the solved columns to X; (3)
+// every thread subtracts their rank-16 product with L from its later
+// columns, as B7 does: four float4 shared loads for 64 FMAs. lt holds the
+// triangle transposed, strictly lower part only (the rest 0); L's upper
+// triangle is never read. S may be X + k: the block reads its rows of S
+// before it writes any of X, and P (X's columns before k) is not written.
+template <bool VEC>
+__global__ void __launch_bounds__(TD_THREADS, 2)
+    trsm_block_kernel(const float* __restrict__ Lr, int ldl, const float* S,
+                      const float* __restrict__ P, float* X, int ld, int r, int w, int k) {
+  extern __shared__ __align__(16) float td_smem[];
+  float(*lt)[TD_LDS] = reinterpret_cast<float(*)[TD_LDS]>(td_smem);
+  float(*xs)[TD_SUB][TD_LDS] = reinterpret_cast<float(*)[TD_SUB][TD_LDS]>(td_smem + TD_W * TD_LDS);
+  float* dg = td_smem + TD_W * TD_LDS + 2 * TD_SUB * TD_LDS;
+  // the product's two k-slice buffers are xs's floats, free before (1)
+  float(*ps)[UP_BK][UP_LDS] = reinterpret_cast<float(*)[UP_BK][UP_LDS]>(xs);
+  float(*qs)[UP_BK][UP_LDS] = ps + 2;
+  const float* Ld = Lr + k;   // the block's diagonal triangle
+  const int tid = threadIdx.x;
+  // row c of the triangle read coalesced, TD_FILL loads in flight a thread
+  for (int e0 = tid; e0 < TD_W * TD_W; e0 += TD_FILL * TD_THREADS) {
+    float v[TD_FILL];
+#pragma unroll
+    for (int u = 0; u < TD_FILL; ++u) {
+      const int c = (e0 + u * TD_THREADS) / TD_W;
+      const int kk = (e0 + u * TD_THREADS) % TD_W;
+      v[u] = (kk < c && c < w) ? Ld[(size_t)c * ldl + kk] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < TD_FILL; ++u)
+      lt[(e0 + u * TD_THREADS) % TD_W][(e0 + u * TD_THREADS) / TD_W] = v[u];
   }
-  return cudaGetLastError();
+  if (tid < TD_W) dg[tid] = tid < w ? Ld[(size_t)tid * ldl + tid] : 1.0f;
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int ty = (warp / 2) * 4 + lane / 8;    // rows ty*4 + i, 64 + ty*4 + i
+  const int tx = (warp % 2) * 8 + lane % 8;    // columns tx*4 + j, 64 + tx*4 + j
+  const int r0 = blockIdx.x * TD_ROWS;
+  float acc[8][8];
+  // its barriers also publish lt and dg
+  product_tile<VEC>(P, ld, Lr, ldl, r, w, k, r0, 0, ty, tx, ps, qs, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + (i / 4) * 64 + ty * 4 + i % 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = h * 64 + tx * 4;
+      const float* src = S + (size_t)row * ld + col;
+      if (VEC) {   // w % 4 == 0: a float4 lies wholly inside or wholly past w
+        const float4 t = (row < r && col < w) ? *reinterpret_cast<const float4*>(src)
+                                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        acc[i][h * 4] = t.x - acc[i][h * 4];
+        acc[i][h * 4 + 1] = t.y - acc[i][h * 4 + 1];
+        acc[i][h * 4 + 2] = t.z - acc[i][h * 4 + 2];
+        acc[i][h * 4 + 3] = t.w - acc[i][h * 4 + 3];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][h * 4 + j] = ((row < r && col + j < w) ? src[j] : 0.0f) - acc[i][h * 4 + j];
+      }
+    }
+  }
+
+#pragma unroll 1
+  for (int s = 0; s * TD_SUB < w; ++s) {
+    const int s0 = s * TD_SUB;
+    float(*xb)[TD_LDS] = xs[s & 1];
+    // (1) the sub-block's columns h*64 + [16q, 16q + 16), held by tx / 4 == q
+    if (tx / 4 == s % 4) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = (i / 4) * 64 + ty * 4 + i % 4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          xb[(tx % 4) * 4 + j][row] = s < 4 ? acc[i][j] : acc[i][4 + j];
+      }
+    }
+    __syncthreads();
+    // (2) forward substitution, one row a thread, right-looking: x_j's
+    // division, then its products with column j of L (float4 reads) leave
+    // the later columns; the row's solved columns go to X
+    if (tid < TD_ROWS) {
+      float x[TD_SUB];
+#pragma unroll
+      for (int m = 0; m < TD_SUB; ++m) x[m] = xb[m][tid];
+#pragma unroll
+      for (int j = 0; j < TD_SUB; ++j) {
+        x[j] = x[j] / dg[s0 + j];
+#pragma unroll
+        for (int c = 0; c < TD_SUB; c += 4) {   // constant trip counts: the tests fold away
+          if (c + 3 <= j) continue;
+          const float4 l = *reinterpret_cast<const float4*>(&lt[s0 + j][s0 + c]);
+          const float lc[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (c + u > j) x[c + u] = fmaf(-x[j], lc[u], x[c + u]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < TD_SUB; ++m) xb[m][tid] = x[m];
+      const int row = r0 + tid;
+      float* dst = X + (size_t)row * ld + s0;
+      if (row < r) {
+        if (VEC) {   // w % 4 == 0
+#pragma unroll
+          for (int m = 0; m < TD_SUB; m += 4)
+            if (s0 + m < w)
+              *reinterpret_cast<float4*>(dst + m) = make_float4(x[m], x[m + 1], x[m + 2], x[m + 3]);
+        } else {
+#pragma unroll
+          for (int m = 0; m < TD_SUB; ++m)
+            if (s0 + m < w) dst[m] = x[m];
+        }
+      }
+    }
+    __syncthreads();
+    // (3) the later columns lose the sub-block's product
+    const int next = s0 + TD_SUB;
+    if (next >= w) break;
+    // a warp's columns are 64h + [cw, cw + 32): it skips a group wholly
+    // solved or wholly past w
+    const int cw = (warp % 2) * 32;
+    const bool lo = cw + 32 > next && cw < w;
+    const bool hi = 64 + cw + 32 > next && 64 + cw < w;
+    if (lo && hi) {
+      td_update<true, true>(acc, xb, lt + s0, ty, tx);
+    } else if (hi) {
+      td_update<false, true>(acc, xb, lt + s0, ty, tx);
+    } else if (lo) {
+      td_update<true, false>(acc, xb, lt + s0, ty, tx);
+    }
+  }
+}
+
+// TD_SMEM is past the 48 KB a launch gets by default: raise the limit of
+// both instantiations, once a device (a host call of microseconds).
+constexpr int TD_MAX_DEVICES = 64;
+cudaError_t td_allow_smem() {
+  static bool done[TD_MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < TD_MAX_DEVICES && done[dev])) return err;
+  err = cudaFuncSetAttribute(trsm_block_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             TD_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(trsm_block_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, TD_SMEM);
+  if (err == cudaSuccess && dev < TD_MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+// X = A L^-T for A, X (r, b) with row stride ld and L with ldl; X may be A.
+// One trsm_block_kernel launch per column block of TD_W columns, in order:
+// block J needs every column before it solved.
+cudaError_t launch_trsm(const float* L, int ldl, const float* A, float* X, int ld, int r,
+                        int b, cudaStream_t stream) {
+  if (r <= 0 || b <= 0) return cudaSuccess;
+  cudaError_t err = td_allow_smem();
+  const dim3 grid((r + TD_ROWS - 1) / TD_ROWS);
+  for (int J0 = 0; err == cudaSuccess && J0 < b; J0 += TD_W) {
+    const int w = b - J0 < TD_W ? b - J0 : TD_W;
+    const float* Lr = L + (size_t)J0 * ldl;
+    // float4 loads and stores (k = J0 is a multiple of 4) where rows are aligned
+    const bool vec = ld % 4 == 0 && ldl % 4 == 0 && w % 4 == 0 &&
+                     ((uintptr_t)Lr | (uintptr_t)(A + J0) | (uintptr_t)X) % 16 == 0;
+    if (vec) {
+      trsm_block_kernel<true><<<grid, TD_THREADS, TD_SMEM, stream>>>(Lr, ldl, A + J0, X,
+                                                                      X + J0, ld, r, w, J0);
+    } else {
+      trsm_block_kernel<false><<<grid, TD_THREADS, TD_SMEM, stream>>>(Lr, ldl, A + J0, X,
+                                                                       X + J0, ld, r, w, J0);
+    }
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -395,7 +561,7 @@ int rb_potrf(const void* A, void* L, int b, void* stream) {
     err = cudaGetLastError();
     if (err != cudaSuccess || rest == 0) break;
     const size_t below = at + (size_t)w * b;   // row s + w, column s
-    err = rb::launch_trsm(Lf + at, b, S + below, b, Lf + below, b, rest, w, st);
+    err = rb::launch_trsm(Lf + at, b, S + below, Lf + below, b, rest, w, st);
     if (err != cudaSuccess) break;
     err = rb::launch_update(S + below + w, Lf + below + w, b, Lf + below, b, Lf + below, b,
                             rest, rest, w, 1, st);
@@ -404,9 +570,8 @@ int rb_potrf(const void* A, void* L, int b, void* stream) {
 }
 
 int rb_trsm(const void* L, const void* A, void* X, int r, int b, void* stream) {
-  return (int)rb::launch_trsm(static_cast<const float*>(L), b, static_cast<const float*>(A), b,
-                              static_cast<float*>(X), b, r, b,
-                              static_cast<cudaStream_t>(stream));
+  return (int)rb::launch_trsm(static_cast<const float*>(L), b, static_cast<const float*>(A),
+                              static_cast<float*>(X), b, r, b, static_cast<cudaStream_t>(stream));
 }
 
 int rb_update(const void* C, const void* P, const void* Q, void* O, int r, int b, int k,

@@ -198,6 +198,46 @@ def test_potrf_blocked_schedule_nan_from_the_bad_pivot_on(b, col):
     assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
 
 
+def _chol(b, seed):
+    """A lower fp32 Cholesky factor of _spd(b, seed), from float64."""
+    return np.linalg.cholesky(_spd(b, seed=seed).astype(np.float64)).astype(np.float32)
+
+
+@pytest.mark.parametrize("nb", [bc.TRSM_NB, 64])
+@pytest.mark.parametrize("b", [40, 200, 257])
+def test_trsm_blocked_schedule_matches_twin_and_reference(b, nb):
+    """B6's column-block schedule (ragged last block) against the forward
+    substitution, the reference's Pallas kernel (interpret mode) and
+    float64; it reads L's lower triangle only."""
+    L = _chol(b, b + 5)
+    P = np.random.default_rng(b).standard_normal((70, b)).astype(np.float32)
+    X = bc.trsm_blocked_plain(torch.from_numpy(_upper_garbage(L)), torch.from_numpy(P), nb)
+    assert _rel(X, bc.trsm_plain(torch.from_numpy(L), torch.from_numpy(P))) < FACTOR_TOL
+    ref = jbc._pallas_trsm(jnp.asarray(_upper_garbage(L)), jnp.asarray(P), interpret=True)
+    assert _rel(X, ref) < FACTOR_TOL
+    X64 = np.linalg.solve(L.astype(np.float64), P.T.astype(np.float64)).T
+    assert _rel(X, X64) < FACTOR_TOL
+
+
+@pytest.mark.parametrize("nb", [bc.TRSM_NB, 64])
+@pytest.mark.parametrize("col", [0, 100, 127, 255, 256])
+def test_trsm_blocked_schedule_nan_from_the_bad_pivot_on(col, nb):
+    """A NaN pivot on L's diagonal at the first column, inside a column
+    block, on a column block's last column and on a ragged panel's last: NaN
+    from that column on in every row, finite before it, exactly where the
+    forward substitution and the reference's kernel put it."""
+    b = 257
+    L = _upper_garbage(_chol(b, col))
+    L[col, col] = np.nan
+    P = np.random.default_rng(col).standard_normal((70, b)).astype(np.float32)
+    X = bc.trsm_blocked_plain(torch.from_numpy(L), torch.from_numpy(P), nb)
+    nan = torch.isnan(X)
+    assert torch.equal(nan, torch.isnan(bc.trsm_plain(torch.from_numpy(L), torch.from_numpy(P))))
+    ref = np.asarray(jbc._pallas_trsm(jnp.asarray(L), jnp.asarray(P), interpret=True))
+    assert torch.equal(nan, torch.from_numpy(np.isnan(ref)))
+    assert nan[:, col:].all() and torch.isfinite(X[:, :col]).all()
+
+
 @pytest.mark.parametrize("b", [40, 128, 200])
 def test_tile_twins_match_reference_pallas_kernels(b):
     """B5-B7's twins against the reference's Pallas tile kernels (interpret
