@@ -68,11 +68,29 @@ def sweep_tile_grid(n: int, M: int) -> tuple[int, int]:
 
 
 def _pad_p(p: int) -> int:
+    """The compiled width one launch runs ``p`` columns at (the kernel-level
+    contract: 1 to MAX_P columns; the wrappers split wider blocks)."""
     if not 1 <= p <= MAX_P:
         raise ValueError(
             f"the CUDA kernels take 1 to {MAX_P} right-hand-side columns, got "
             f"p={p}; split wider blocks into calls of at most {MAX_P}")
     return next(P for P in _P_PADS if P >= p)
+
+
+def column_groups(p: int) -> list[slice]:
+    """The column groups a p-column right-hand side runs in: consecutive
+    slices of at most MAX_P columns, one launch each (one group for p <= 4)."""
+    if p < 1:
+        raise ValueError(f"a right-hand side needs at least one column, got p={p}")
+    return [slice(c, min(c + MAX_P, p)) for c in range(0, p, MAX_P)]
+
+
+def _group(t: Tensor | None, g: slice, p: int) -> Tensor | None:
+    """Columns ``g`` of a (rows, p) operand; the whole tensor when ``g``
+    spans it, so that p <= MAX_P passes its operand through untouched."""
+    if t is None or (g.start == 0 and g.stop == p):
+        return t
+    return t[:, g].contiguous()
 
 
 def sweep_smem_bytes(M: int, p: int) -> tuple[int, bool]:
@@ -210,7 +228,7 @@ def fused_sweep_plain(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, 
     return w, torch.tensor(2 * nbi * nbj, dtype=torch.int32)
 
 
-def _fused_sweep_cuda(X, C, u, v, spec, row_mask):
+def _fused_sweep_cuda(X, C, u, v, *, spec, row_mask):
     what = "fused_sweep"
     n, d = X.shape
     M = C.shape[0]
@@ -247,21 +265,29 @@ def _fused_sweep_cuda(X, C, u, v, spec, row_mask):
 def fused_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
                 spec: KernelSpec, row_mask: Tensor | None = None,
                 return_tile_count: bool = False):
-    """w = K(X,C)^T (K(X,C) u + v) — the whole CG sweep in one launch.
+    """w = K(X,C)^T (K(X,C) u + v) — the whole CG sweep in one launch per
+    column group.
 
     X: (n, d), C: (M, d), u: (M,) or (M, p), v like u's rows over n or None
-    -> w like u. ``row_mask`` (n,), 0/1: rows with mask 0 contribute EXACTLY
-    zero (their t_i is zeroed before the transposed product). With
-    ``return_tile_count=True`` also returns the int32 count of 64 x 64 Gram
-    tiles evaluated: ``2 * nbi * nbj``.
+    -> w like u. Any p >= 1: the columns run in groups of at most MAX_P
+    (:func:`column_groups`), one launch (or, on the CPU, one twin call)
+    each. ``row_mask`` (n,), 0/1: rows with mask 0 contribute EXACTLY zero
+    (their t_i is zeroed before the transposed product). With
+    ``return_tile_count=True`` also returns the int32 count of Gram tiles
+    evaluated, summed over the groups: ``groups * 2 * nbi * nbj``.
     """
     squeeze = u.ndim == 1
     u2 = u[:, None] if squeeze else u
     v2 = None if v is None else (v[:, None] if squeeze else v)
-    if _route("fused_sweep", X, C, u2, v2, row_mask) == "cpu":
-        w, count = fused_sweep_plain(X, C, u2, v2, spec=spec, row_mask=row_mask)
-    else:
-        w, count = _fused_sweep_cuda(X, C, u2, v2, spec, row_mask)
+    p = u2.shape[1]
+    sweep = (fused_sweep_plain if _route("fused_sweep", X, C, u2, v2, row_mask) == "cpu"
+             else _fused_sweep_cuda)
+    ws, count = [], 0
+    for g in column_groups(p):
+        w, c = sweep(X, C, _group(u2, g, p), _group(v2, g, p), spec=spec, row_mask=row_mask)
+        ws.append(w)
+        count = count + c
+    w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=1)
     w = w[:, 0] if squeeze else w
     return (w, count) if return_tile_count else w
 
@@ -280,7 +306,7 @@ def kernel_matmul_plain(A: Tensor, B: Tensor, V: Tensor, add: Tensor | None = No
     return out if add is None else out + add
 
 
-def _kernel_matmul_cuda(A, B, V, add, spec):
+def _kernel_matmul_cuda(A, B, V, add, *, spec):
     what = "kernel_matmul"
     m, d = A.shape
     n = B.shape[0]
@@ -307,6 +333,7 @@ def kernel_matmul(A: Tensor, B: Tensor, V: Tensor, add: Tensor | None = None, *,
     """out = K(A, B) V (+ add) with Gram tiles that never leave the chip.
 
     A: (m, d), B: (n, d), V: (n,) or (n, p), add like the output or None.
+    Any p >= 1, in groups of at most MAX_P columns, one launch each.
     ``out_dtype`` is float32 (or None); other output types are ROADMAP A7.
     """
     if out_dtype not in (None, torch.float32):
@@ -314,10 +341,12 @@ def kernel_matmul(A: Tensor, B: Tensor, V: Tensor, add: Tensor | None = None, *,
     squeeze = V.ndim == 1
     V2 = V[:, None] if squeeze else V
     add2 = None if add is None else (add[:, None] if squeeze else add)
-    if _route("kernel_matmul", A, B, V2, add2) == "cpu":
-        out = kernel_matmul_plain(A, B, V2, add2, spec=spec)
-    else:
-        out = _kernel_matmul_cuda(A, B, V2, add2, spec)
+    p = V2.shape[1]
+    matmul = (kernel_matmul_plain if _route("kernel_matmul", A, B, V2, add2) == "cpu"
+              else _kernel_matmul_cuda)
+    outs = [matmul(A, B, _group(V2, g, p), _group(add2, g, p), spec=spec)
+            for g in column_groups(p)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out[:, 0] if squeeze else out
 
 
@@ -398,6 +427,18 @@ def sharded_sweep_plain(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None
     return _transposed_pass(kernel_matmul_plain, C, X, t, shard_m, spec=spec)
 
 
+def _sharded_sweep_cuda(X, C, u, v, *, spec, row_mask, shard_m):
+    t = kernel_matmul(X, C, u, v, spec=spec)
+    if row_mask is not None:
+        if row_mask.shape != (X.shape[0],):
+            raise ValueError(f"sharded_sweep: row_mask shape {tuple(row_mask.shape)} "
+                             f"!= ({X.shape[0]},)")
+        t = t * row_mask.to(t.dtype)[:, None]
+    w = _transposed_pass(kernel_matmul, C, X, t, shard_m, spec=spec)
+    sharded_sweep.launches += 1
+    return w
+
+
 def sharded_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
                   spec: KernelSpec, row_mask: Tensor | None = None, shard_m: int = 8192,
                   t_dtype: torch.dtype | None = None,
@@ -409,9 +450,10 @@ def sharded_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
     device memory, rows with ``row_mask == 0`` are multiplied to exactly 0,
     then ``kernel_matmul(C_j, X, t)`` per ``shard_m`` rows of C (over X in
     ``SHARD_ROW_CHUNK``-row chunks chained through ``add=``), and the shards
-    are concatenated. Each Gram entry is evaluated twice. This wrapper
-    counts one launch per call on a CUDA tensor, and each B2 launch inside
-    it counts on ``kernel_matmul``'s counter too. Only float32 ``t_dtype`` /
+    are concatenated. Each Gram entry is evaluated twice. Any p >= 1: the
+    columns run in groups of at most MAX_P, the whole schedule once per
+    group. This wrapper counts one launch per group on a CUDA tensor, and
+    each B2 launch inside it counts on ``kernel_matmul``'s counter too. Only float32 ``t_dtype`` /
     ``out_dtype`` (or None) are taken: the others are ROADMAP A7.
     """
     for name, dt in (("t_dtype", t_dtype), ("out_dtype", out_dtype)):
@@ -421,17 +463,12 @@ def sharded_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
     squeeze = u.ndim == 1
     u2 = u[:, None] if squeeze else u
     v2 = None if v is None else (v[:, None] if squeeze else v)
-    if _route("sharded_sweep", X, C, u2, v2, row_mask) == "cpu":
-        w = sharded_sweep_plain(X, C, u2, v2, spec=spec, row_mask=row_mask, shard_m=shard)
-    else:
-        t = kernel_matmul(X, C, u2, v2, spec=spec)
-        if row_mask is not None:
-            if row_mask.shape != (X.shape[0],):
-                raise ValueError(f"sharded_sweep: row_mask shape {tuple(row_mask.shape)} "
-                                 f"!= ({X.shape[0]},)")
-            t = t * row_mask.to(t.dtype)[:, None]
-        w = _transposed_pass(kernel_matmul, C, X, t, shard, spec=spec)
-        sharded_sweep.launches += 1
+    p = u2.shape[1]
+    sweep = (sharded_sweep_plain if _route("sharded_sweep", X, C, u2, v2, row_mask) == "cpu"
+             else _sharded_sweep_cuda)
+    ws = [sweep(X, C, _group(u2, g, p), _group(v2, g, p), spec=spec, row_mask=row_mask,
+                shard_m=shard) for g in column_groups(p)]
+    w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=1)
     return w[:, 0] if squeeze else w
 
 

@@ -47,12 +47,15 @@ class CudaKernelOps(OpsBase):
 
     def plan(self, n: int, M: int, d: int, p: int = 1, systems: int = 1) -> SweepPlan:
         """The route ``sweep`` takes for these shapes, from the Hopper
-        workspace model (``REPRO_SWEEP_BUDGET_MB``)."""
+        workspace model (``REPRO_SWEEP_BUDGET_MB``). A block wider than
+        ``km.MAX_P`` columns runs one launch per column group, each with its
+        own w-partial workspace, so it is planned at its widest group."""
         width = max(p, 1) * max(systems, 1)
+        group = min(width, km.MAX_P)
         bm, bn = km.sweep_block_dims(n, M)
-        smem, _ = km.sweep_smem_bytes(M, width)
-        return plan_sweep(n, M, d, p, bm=bm, bn=bn, width=km._pad_p(width),
-                          scratch_bytes=smem, grid=km.sweep_grid_model(M, width),
+        smem, _ = km.sweep_smem_bytes(M, group)
+        return plan_sweep(n, M, d, p, bm=bm, bn=bn, width=km._pad_p(group),
+                          scratch_bytes=smem, grid=km.sweep_grid_model(M, group),
                           systems=systems, policy=self.policy)
 
     def sweep(self, X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None,
@@ -72,7 +75,8 @@ class CudaKernelOps(OpsBase):
     def sweep_with_stats(self, X: Tensor, C: Tensor, u: Tensor,
                          v: Tensor | None = None) -> tuple[Tensor, Tensor]:
         """sweep() plus the kernel's Gram-tile evaluation counter (int32):
-        ``2 * nbi * nbj`` (see ``kernel_matvec.sweep_tile_grid``). Only the
+        ``2 * nbi * nbj`` per column group, summed over the groups (see
+        ``kernel_matvec.sweep_tile_grid``, ``column_groups``). Only the
         fused kernel counts tiles, so shapes planned off the fused route are
         refused rather than measured on another path."""
         p = u.shape[1] if u.ndim > 1 else 1

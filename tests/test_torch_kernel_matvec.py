@@ -18,9 +18,11 @@ from repro.kernels.kernel_matvec import (
     fused_sweep_pallas,
     kernel_matmul_pallas,
     pairwise_kernel_pallas,
+    sharded_sweep_pallas,
 )
 from repro_torch.core import kernels as tk
 from repro_torch.kernels import kernel_matvec as km
+from repro_torch.ops import get_ops
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -187,3 +189,88 @@ def test_sweep_tiling_and_shared_memory_plan():
     assert km.TILE_SMEM_BYTES == 17152
     kind, sigma, coef, ss, c, degree = km._kparams(tk.make_kernel("gaussian", sigma=4.0).spec)
     assert (kind, sigma, coef) == (0, 4.0, -0.5 / 16.0)
+
+
+# ---------------------------------------------------------------------------
+# Right-hand sides wider than the kernels' 4 columns (the reference pads p to
+# 128 lanes and takes any width): the wrappers split them into column groups
+# of at most 4, one launch each, on the CPU as on the card.
+# ---------------------------------------------------------------------------
+WIDE = [5, 8, 17]
+
+
+@pytest.mark.parametrize("p", WIDE)
+def test_wide_rhs_backend_matches_pallas(p):
+    """CudaKernelOps' sweep (B1) and apply (B2), and the sharded sweep (B4),
+    at p > 4 against the reference's kernels in interpret mode; TOL."""
+    n, M, d = 150, 70, 6
+    X, C, u, v = _data(n, M, d, p, seed=30 + p)
+    jspec, tspec = _specs("gaussian", dict(sigma=1.5))
+    ops = get_ops("cuda", tk.make_kernel("gaussian", sigma=1.5))
+    ref = fused_sweep_pallas(J(X), J(C), J(u), J(v), spec=jspec, interpret=True)
+    got = ops.sweep(T(X), T(C), T(u), T(v))
+    assert got.shape == (M, p)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    ref0 = fused_sweep_pallas(J(X), J(C), J(u), None, spec=jspec, interpret=True)
+    np.testing.assert_allclose(ops.sweep(T(X), T(C), T(u)).numpy(), np.asarray(ref0), **TOL)
+    refa = kernel_matmul_pallas(J(X), J(C), J(u), spec=jspec, interpret=True)
+    np.testing.assert_allclose(ops.apply(T(X), T(C), T(u)).numpy(), np.asarray(refa), **TOL)
+    refs = sharded_sweep_pallas(J(X), J(C), J(u), J(v), spec=jspec, shard_m=32)
+    np.testing.assert_allclose(
+        km.sharded_sweep(T(X), T(C), T(u), T(v), spec=tspec, shard_m=32).numpy(),
+        np.asarray(refs), **TOL)
+
+
+@pytest.mark.parametrize("p", WIDE)
+def test_wide_rhs_groups_are_the_narrow_calls(p):
+    """Each group of a wide call is exactly the call on its columns alone,
+    masked junk rows still give exactly the valid prefix, and the matmul's
+    ``add=`` splits with V."""
+    n, keep, M, d = 200, 170, 60, 5
+    X, C, u, v = _data(n, M, d, p, seed=p)
+    spec = tk.make_kernel("matern32", sigma=1.3).spec
+    w = km.fused_sweep(T(X), T(C), T(u), T(v), spec=spec)
+    out = km.kernel_matmul(T(X), T(C), T(u), T(v), spec=spec)
+    for g in km.column_groups(p):
+        assert g.stop - g.start <= km.MAX_P
+        assert torch.equal(w[:, g], km.fused_sweep(T(X), T(C), T(u[:, g].copy()),
+                                                   T(v[:, g].copy()), spec=spec))
+        assert torch.equal(out[:, g], km.kernel_matmul(T(X), T(C), T(u[:, g].copy()),
+                                                       T(v[:, g].copy()), spec=spec))
+    Xj = X.copy()
+    Xj[keep:] = 123.0
+    mask = torch.zeros(n)
+    mask[:keep] = 1.0
+    got = km.fused_sweep(T(Xj), T(C), T(u), T(v), spec=spec, row_mask=mask)
+    assert torch.equal(got, km.fused_sweep(T(X[:keep]), T(C), T(u), T(v[:keep]), spec=spec))
+
+
+def test_wide_rhs_tile_count_sums_the_groups():
+    """p = 5 runs two groups (4 + 1): the tile counter reads 2 x 2 nbi nbj,
+    on the wrapper and through CudaKernelOps.sweep_with_stats."""
+    n, M, d, p = 300, 97, 7, 5
+    X, C, u, v = _data(n, M, d, p, seed=4)
+    spec = tk.make_kernel("gaussian", sigma=2.0).spec
+    nbi, nbj = km.sweep_tile_grid(n, M)
+    assert [(g.start, g.stop) for g in km.column_groups(p)] == [(0, 4), (4, 5)]
+    _, count = km.fused_sweep(T(X), T(C), T(u), T(v), spec=spec, return_tile_count=True)
+    assert int(count) == 2 * (2 * nbi * nbj)
+    ops = get_ops("cuda", tk.make_kernel("gaussian", sigma=2.0))
+    w, count = ops.sweep_with_stats(T(X), T(C), T(u), T(v))
+    assert w.shape == (M, p) and int(count) == 2 * (2 * nbi * nbj)
+    with pytest.raises(ValueError, match="at least one column"):
+        km.column_groups(0)
+
+
+def test_wide_rhs_plan_is_per_group():
+    """CudaKernelOps.plan at width 17 (groups 4, 4, 4, 4, 1) charges one
+    launch's workspace at the compiled width 4, as p = 4 does."""
+    ops = get_ops("cuda", tk.make_kernel("gaussian", sigma=2.0))
+    n, M, d = 4_000_000, 10_000, 18
+    wide, four = ops.plan(n, M, d, 17), ops.plan(n, M, d, 4)
+    assert (wide.path, wide.p) == ("fused", 17)
+    assert wide.io_bytes == four.io_bytes
+    assert wide.io_bytes == min(km.sweep_grid_model(M, 4), -(-n // wide.block_m)) * M * 4 * 4
+    assert wide.scratch_bytes == km.sweep_smem_bytes(M, 4)[0]
+    stacked = ops.plan(n, M, d, 3, systems=6)
+    assert (stacked.p, stacked.systems, stacked.io_bytes) == (18, 6, four.io_bytes)
