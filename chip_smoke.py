@@ -11,11 +11,15 @@ result line:
                library.
 3. kernels  — every kernel (sweep B1, kernel matmul B2, pairwise Gram B3,
                sharded sweep B4) against its plain PyTorch twin on the
-               card, for all five kernel kinds, ragged shapes, p = 1 to 4,
-               ``v=None``, ``row_mask`` (masked rows must give exactly the
-               prefix result) and ``add=``; B1 also at M = 5000 (p = 3) and
-               M = 20500 (p = 1), where its w partials live in global
-               memory; B4 also against B1, with ragged shards.
+               card, for all five kernel kinds, ragged shapes, p = 1 to 4
+               and p = 5, 8, 17 (column groups of at most 4, one launch
+               each), ``v=None``, ``row_mask`` (masked rows must give
+               exactly the prefix result) and ``add=``; B1 also at M = 5000
+               (p = 3) and M = 20500 (p = 1), where its w partials live in
+               global memory, and around its 128 x 128 tile (n, M in 1,
+               127, 128, 129; d in 1, 18, 90, 129: one k-chunk, several,
+               and X staged again per tile past d = 128; p = 1 and 4); B4
+               also against B1, with ragged shards.
 4. blocked  — the blocked Cholesky's tile kernels B5-B7 against their
                twins at the ragged test shapes, a 1280 tile and the last
                80-wide panel's update (k = 1280); B5 at widths around its
@@ -45,18 +49,21 @@ result line:
                device peak against the plan's ceiling and the exact launch
                counts (B5 80, B6 78, B7 1560, B3 1, B1 47); test MSE against
                the label variance; a second solve with the sweep forced onto
-               B4 (``REPRO_SWEEP_BUDGET_MB``) against the first; two small
+               B4 (``REPRO_SWEEP_BUDGET_MB``) against the first, and the
+               test MSE of both and of a plain float32 solve; two small
                forced-blocked fits (M = 320 and 1024) against in-core and
                float64 fits.
 7. times    — the full-size sweeps (SUSY: B1; MillionSongs: B1 and B4) and
                the predict-shape kernel matmul against float32 and float64
                twins; the MillionSongs fit's blocked T and A against
                in-core float32 (cuSOLVER) and float64 factors of the same
-               matrices; B6 and B7 at the first panel's shapes against their
-               twins (B6 twice, bit-equal); each kernel at its path's shapes
-               (CUDA events) beside its plain twin, its bound and its library
-               call; B5's and B6's device operations per call by name
-               (``torch.profiler``); then one ``kernels`` JSON line.
+               matrices; B1 at the SUSY shape twice, bit-equal; B6 and B7 at
+               the first panel's shapes against their twins (B6 twice,
+               bit-equal); each kernel at its path's shapes (CUDA events)
+               beside its plain twin, its bound and its library call; B1's
+               (at both fits' shapes), B5's and B6's device operations per
+               call by name (``torch.profiler``); then one ``kernels`` JSON
+               line.
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -89,6 +96,13 @@ KINDS = [
     ("polynomial", dict(degree=2, c=0.5, scale=2.0)),
 ]
 SHAPES = [(300, 97, 13), (513, 129, 33)]
+#: right-hand-side widths: the compiled 1 and 4, 2 and 3 padded to 4, and
+#: wider blocks that run in column groups of at most 4
+WIDTHS = (1, 2, 3, 4, 5, 8, 17)
+#: B1 around its 128 x 128 tile: rows and centers at 1, 127, 128, 129; d of
+#: one k-chunk (1, 18), several (90), and past the resident X block (129)
+EDGE_NM = (1, 127, 128, 129)
+EDGE_D = (1, 18, 90, 129)
 #: (n, M, d, p) of sweeps whose w partials overflow shared memory
 SWEEP_GLOBAL = [(40_000, 5_000, 18, 3), (40_000, 20_500, 18, 1)]
 #: (n, M, d, shard_m) of the sharded sweep B4: ragged shards; the last
@@ -232,11 +246,12 @@ def check_sweep(torch, km, spec, X, C, u, v, res: dict, tag: str) -> None:
     ref, _ = km.fused_sweep_plain(X, C, u2, v2, spec=spec)
     res["sweep"] = close_err(w.reshape(M, p), ref)
     nbi, nbj = km.sweep_tile_grid(n, M)
-    check(int(cnt) == 2 * nbi * nbj, f"{tag}: tile count {int(cnt)} != {2 * nbi * nbj}")
+    tiles = len(km.column_groups(p)) * 2 * nbi * nbj
+    check(int(cnt) == tiles, f"{tag}: tile count {int(cnt)} != {tiles}")
     w0 = km.fused_sweep(X, C, u, None, spec=spec)
     res["sweep v=None"] = close_err(w0.reshape(M, p),
                                     km.fused_sweep_plain(X, C, u2, None, spec=spec)[0])
-    keep = n - 20
+    keep = n - min(20, n // 2)
     Xj = X.clone()
     Xj[keep:] = 123.0
     mask = torch.zeros(n, device=X.device)
@@ -274,7 +289,7 @@ def phase_kernels(torch):
     for kind, params in KINDS:
         spec = make_kernel(kind, **params).spec
         for n, M, d in SHAPES:
-            for p in (1, 2, 3, 4):   # compiled widths P = 1 and 4; 2 and 3 pad to 4
+            for p in WIDTHS:
                 cols = () if p == 1 else (p,)
                 X, C = randn(n, d), randn(M, d)
                 u, v = randn(M, *cols), randn(n, *cols)
@@ -297,7 +312,7 @@ def phase_kernels(torch):
         # B1 with its w partials in global scratch (too large for shared
         # memory), more row blocks than resident blocks, at both widths
         for n, M, d, p in SWEEP_GLOBAL:
-            smem, in_smem = km.sweep_smem_bytes(M, p)
+            smem, in_smem = km.sweep_smem_bytes(M, p, d)
             check(not in_smem, f"sweep M={M} p={p} keeps its w partial in shared memory")
             cols = () if p == 1 else (p,)
             X, C = randn(n, d), randn(M, d)
@@ -306,9 +321,9 @@ def phase_kernels(torch):
             check_sweep(torch, km, spec, X, C, randn(M, *cols), randn(n, *cols), res, tag)
             cases += len(res)
             worst = max(worst, tally(res, tag))
-        # B4 against its twin and against B1: ragged shards, p = 1 to 4
+        # B4 against its twin and against B1: ragged shards, every width
         for n, M, d, shard in SHARDED:
-            for p in (1, 2, 3, 4):
+            for p in WIDTHS:
                 cols = () if p == 1 else (p,)
                 X, C = randn(n, d), randn(M, d)
                 res = {}
@@ -317,6 +332,27 @@ def phase_kernels(torch):
                               res, tag)
                 cases += len(res)
                 worst = max(worst, tally(res, tag))
+    # B1 around its tile: ragged and exact row blocks and center tiles, one
+    # and several k-chunks, X resident and staged again per tile (d = 129)
+    spec = make_kernel("gaussian", sigma=1.3).spec
+    for d in EDGE_D:
+        edge = 0.0
+        for n in EDGE_NM:
+            for M in EDGE_NM:
+                for p in (1, 4):
+                    cols = () if p == 1 else (p,)
+                    X, C = randn(n, d), randn(M, d)
+                    res = {}
+                    tag = f"gaussian   n,M,d={n},{M},{d} p={p} (B1 tile edges)"
+                    check_sweep(torch, km, spec, X, C, randn(M, *cols), randn(n, *cols), res, tag)
+                    cases += len(res)
+                    edge = max(edge, *(r for _, r in res.values()))
+                    for name, (abs_err, ratio) in res.items():
+                        check(ratio <= 1.0, f"{name} {tag}: max abs err {abs_err:.3e} "
+                              f"exceeds atol 1e-4 + rtol 1e-4 (ratio {ratio:.3f})")
+        say(f"[kernels] B1 tile edges d={d}: n, M in {EDGE_NM}, p = 1 and 4 pass; worst "
+            f"ratio {edge:.4f}")
+        worst = max(worst, edge)
     say(f"[kernels] {cases} checks pass; worst max|diff|/(1e-4 + 1e-4 max|ref|) = {worst:.4f} (bound 1)")
 
 
@@ -670,10 +706,13 @@ def phase_msd(torch, args):
     splan = ops.plan(n, M, d)
     say(f"[msd] sweep plan: {splan.path} — {splan.reason}")
     # the planner models B1's grid without a card; the launch queries it
-    smem, _ = km.sweep_smem_bytes(M, 1)
-    grid_q = km._sweep_grid(km._pad_p(1), smem, torch.cuda.current_device())
-    say(f"[msd] B1 grid: planner's model {km.sweep_grid_model(M, 1)}, occupancy query {grid_q}")
-    check(km.sweep_grid_model(M, 1) >= grid_q, "the planner's grid model is below the card's")
+    for dd, mm in ((d, M), (18, 10_000)):   # this fit's sweep and the SUSY one
+        smem, _ = km.sweep_smem_bytes(mm, 1, dd)
+        grid_q = km._sweep_grid(km._pad_p(1), km.KIND_CODES["gaussian"], smem,
+                                torch.cuda.current_device())
+        model = km.sweep_grid_model(mm, 1, dd)
+        say(f"[msd] B1 grid at M={mm} d={dd}: planner's model {model}, occupancy query {grid_q}")
+        check(model >= grid_q, "the planner's grid model is below the card's")
 
     km.reset_launch_counts()
     times: dict = {}
@@ -780,6 +819,11 @@ def phase_msd(torch, args):
     say(f"[msd] distance from the planner-route (B1) solve, j_sharded (B4) vs plain "
         f"float32: alpha {ra:.3e} vs {ya:.3e}, beta {rb:.3e} vs {yb:.3e}, predictions "
         f"{rp:.3e} vs {yp:.3e} (bound {AGREE_FACTOR:g}x the plain solve's)")
+    # how far fp32 rounding alone moves the test MSE at lam = 1e-6: three
+    # correct float32 solves on one preconditioner, each summing in its order
+    say(f"[msd] test MSE on one preconditioner: B1 solve {mse:.6f}, B4 solve "
+        f"{float(((pred2 - yt) ** 2).mean()):.6f}, plain float32 solve "
+        f"{float(((pred3 - yt) ** 2).mean()):.6f}")
     check(ra <= AGREE_FACTOR * ya and rp <= AGREE_FACTOR * yp,
           "the j_sharded solve stands farther from the planner-route solve than "
           f"{AGREE_FACTOR:g}x a plain float32 solve does")
@@ -866,6 +910,11 @@ def phase_times(torch, main, msd) -> list[dict]:
     abs_err, ratio = close_err(ws["B1"], w_ref)
     say(f"[times] full-size sweep vs plain twin: max abs err {abs_err:.3e}, ratio {ratio:.4f}")
     check(ratio <= 1.0, f"full-size sweep disagrees with its twin (ratio {ratio})")
+    again = torch.equal(ws["B1"], km.fused_sweep(X, Cc, u, spec=spec))
+    say(f"[times] full-size sweep, two runs bit-equal: {again}")
+    check(again, "B1 at the SUSY shape is not deterministic")
+    breakdown(torch, f"B1 n={n} M={M} d={d}", lambda: km.fused_sweep(X, Cc, u, spec=spec),
+              each=True)
     ms = time_cuda(torch, lambda: km.fused_sweep(X, Cc, u, spec=spec), 5)
     plain = time_cuda(torch, lambda: km.fused_sweep_plain(X, Cc, u[:, None], None, spec=spec), 2)
     b, by = bound(n * M * (2 * d + 10 + 4), 4 * (n * d + M * d + 2 * M))
@@ -955,6 +1004,7 @@ def msd_times(torch, msd) -> list[dict]:
         f"B4 {e4:.3e} (ratio {r4:.4f}); B4 vs B1 {close_err(w4, w1)[0]:.3e}")
     check(max(r1, r4) <= 1.0, "MillionSongs sweep off its twin")
     b, by = bound(n * M * (2 * d + 10 + 4), 4 * (n * d + M * d + 2 * M))
+    breakdown(torch, f"B1 n={n} M={M} d={d}", fused, each=True)
     ms1 = time_cuda(torch, fused, 3)
     ms4 = time_cuda(torch, sharded, 3)
     plain4 = time_cuda(torch, lambda: km.sharded_sweep_plain(X, C, u[:, None], spec=spec,

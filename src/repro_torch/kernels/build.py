@@ -40,10 +40,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # kernel_matvec.cu: B1-B3
     "rt_tile_smem_bytes": [],
-    "rt_sweep_grid": [_I, _I, ctypes.POINTER(_I)],
+    "rt_sweep_grid": [_I, _I, _I, ctypes.POINTER(_I)],
     "rt_fused_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _F, _F, _F, _F, _I,
-                       _I, _I, _I, _I, _P, _P, _P, _P],
+                       _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "rt_kernel_matmul": [_P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _F, _F, _F, _F, _I, _I, _P, _P],
     "rt_pairwise": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P],

@@ -13,13 +13,20 @@ The kernels live in ``csrc/kernel_matvec.cu`` and ``csrc/tile.cuh`` (whose
 header comments give each kernel's bound on the card and its design). A
 wrapper launches its kernel for a CUDA tensor and takes the plain twin only
 for a CPU tensor; there is no fallback from one to the other. Each wrapper
-counts its kernel launches in its ``launches`` attribute.
+counts its kernel launches in its ``launches`` attribute. The kernels take
+1 to MAX_P = 4 right-hand-side columns (compiled widths 1 and 4); the
+wrappers of B1, B2 and B4 take any p and run its columns in groups of at
+most 4 (:func:`column_groups`), one launch each, on the CPU as on the card.
 
-The Hopper tiling is fixed: 64 x 64 Gram tiles (:func:`sweep_block_dims`).
-The sweep evaluates every tile twice (forward pass, then transposed pass),
-so its tile counter reads ``2 * nbi * nbj`` (:func:`sweep_tile_grid`) — the
-TPU kernel's one-evaluation-per-tile property does not hold here. Only fp32
-inputs are taken: bf16 storage and Kahan compensation are ROADMAP.md A7.
+The sweep (B1) has its own tiling: 128-row blocks of X against 128-center
+tiles (:func:`sweep_block_dims`), an 8 x 8 register micro-tile a thread,
+the X block resident in shared memory and the centers streamed through a
+cp.async ring of 32-deep k-chunks (:func:`sweep_smem_bytes`). It evaluates
+every tile twice (forward pass, then transposed pass), so its tile counter
+reads ``2 * nbi * nbj`` in 128 x 128 tiles (:func:`sweep_tile_grid`) — the
+TPU kernel's one-evaluation-per-tile property does not hold here. B2 and B3
+keep B0's 64 x 64 tiles (``BM``, ``BN``). Only fp32 inputs are taken: bf16
+storage and Kahan compensation are ROADMAP.md A7.
 """
 from __future__ import annotations
 
@@ -32,15 +39,22 @@ from repro_torch.core.kernels import KernelSpec, tile_eval
 
 Tensor = torch.Tensor
 
-BM = 64          # Gram tile rows (X / A side)
-BN = 64          # Gram tile columns (C / B side)
-DK = 32          # d-chunk staged through shared memory per round
-TY = 16          # thread rows of a block (pass-2 reduction depth)
-NT = 256         # threads of a Gram-tile block
-MAX_P = 4        # widest right-hand side the sweep and matmul kernels take
+BM = 64          # B0's Gram tile rows (A side), B2 and B3
+BN = 64          # B0's Gram tile columns (B side)
+DK = 32          # B0's d-chunk staged through shared memory per round
+NT = 256         # threads of a Gram-tile block (B0 and B1)
+MAX_P = 4        # widest right-hand side one kernel launch takes
 _P_PADS = (1, 4)   # compiled widths; p is padded up to the next one
 #: shared memory of one staged tile (csrc/tile.cuh ``TileSmem``)
 TILE_SMEM_BYTES = 4 * (2 * DK * (BM + 1) + BM + BN)
+#: the sweep's tiling (csrc/kernel_matvec.cu ``SW_*``): 128-row blocks of
+#: X, 128-center tiles, 32-deep k-chunks of C in its ring, X resident up to
+#: d = 128 (deeper X is staged again per tile in 128-deep chunks)
+SWEEP_BM = 128
+SWEEP_BN = 128
+SWEEP_KC = 32
+SWEEP_XK = 128
+SWEEP_LDX = SWEEP_BM + 4
 #: the sweep keeps its w partial in shared memory while the block's total
 #: stays under this, so that at least two blocks fit on an SM
 W_SMEM_LIMIT = 100 * 1024
@@ -55,9 +69,9 @@ _A7 = "ROADMAP.md item A7 (bf16 policy)"
 
 
 def sweep_block_dims(n: int, M: int) -> tuple[int, int]:
-    """(bm, bn) the CUDA sweep tiles with: fixed 64 x 64 for every shape."""
+    """(bm, bn) the CUDA sweep tiles with: fixed 128 x 128 for every shape."""
     del n, M
-    return BM, BN
+    return SWEEP_BM, SWEEP_BN
 
 
 def sweep_tile_grid(n: int, M: int) -> tuple[int, int]:
@@ -93,11 +107,17 @@ def _group(t: Tensor | None, g: slice, p: int) -> Tensor | None:
     return t[:, g].contiguous()
 
 
-def sweep_smem_bytes(M: int, p: int) -> tuple[int, bool]:
+def sweep_smem_bytes(M: int, p: int, d: int) -> tuple[int, bool]:
     """Dynamic shared memory of one sweep block and whether its w partial
-    lives there (else in a per-block slice of global scratch)."""
+    lives there (else in a per-block slice of global scratch). Mirrors
+    ``sweep_smem_floats`` of csrc/kernel_matvec.cu: the C ring (2 chunks of
+    min(d, 32) k-rows), the extras ring (||c||^2 and u of 2 tiles), the X
+    block (min(d, 128) k-rows, padded), t, the cross-warp reduction buffer,
+    the row norms and, when it fits, the w partial."""
     P = _pad_p(p)
-    base = TILE_SMEM_BYTES + 4 * (BN * P + BM * P + TY * BN * P)
+    cr, xr = min(d, SWEEP_KC), min(d, SWEEP_XK)
+    base = 4 * (2 * cr * SWEEP_BN + 2 * (1 + P) * SWEEP_BN + xr * SWEEP_LDX
+                + P * SWEEP_BM + 4 * P * SWEEP_BN + SWEEP_BM)
     with_w = base + 4 * M * P
     if with_w <= W_SMEM_LIMIT:
         return with_w, True
@@ -112,12 +132,12 @@ SM_SMEM = 233_472
 BLOCK_SMEM_RESERVED = 1024
 
 
-def sweep_grid_model(M: int, p: int) -> int:
+def sweep_grid_model(M: int, p: int, d: int) -> int:
     """Persistent sweep blocks the planner charges for: SMs x the blocks one
     SM can hold by threads and shared memory. The launch queries the card's
     occupancy instead, which registers can only lower, so the model bounds
     the grid, and the w-partial workspace, from above."""
-    smem, _ = sweep_smem_bytes(M, p)
+    smem, _ = sweep_smem_bytes(M, p, d)
     per_sm = min(SM_THREADS // NT, SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
     return SMS * max(per_sm, 1)
 
@@ -155,11 +175,12 @@ def _check(code: int, what: str) -> None:
 
 
 @functools.cache
-def _sweep_grid(P: int, smem: int, device_index: int) -> int:
-    """Persistent sweep grid: resident blocks per SM x SMs (the caller holds
-    the device context of ``device_index``)."""
+def _sweep_grid(P: int, kind: int, smem: int, device_index: int) -> int:
+    """Persistent sweep grid: resident blocks per SM x SMs of B1's
+    instantiation for (P, kernel kind code) (the caller holds the device
+    context of ``device_index``)."""
     grid = ctypes.c_int(0)
-    _check(_lib().rt_sweep_grid(P, smem, ctypes.byref(grid)), "sweep grid query")
+    _check(_lib().rt_sweep_grid(P, kind, smem, ctypes.byref(grid)), "sweep grid query")
     return grid.value
 
 
@@ -209,7 +230,7 @@ def fused_sweep_plain(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, 
     ``block_rows`` so every block contracts at one shape; ``t`` is zeroed on
     padded rows and multiplied by ``row_mask``, so masked rows contribute
     exactly 0. Returns ``(w, tile evaluations)``: every entry is evaluated
-    twice, ``2 * nbi * nbj`` in 64 x 64 tile units.
+    twice, ``2 * nbi * nbj`` in the kernel's 128 x 128 tile units.
     """
     n = X.shape[0]
     w = torch.zeros(C.shape[0], u.shape[1], dtype=X.dtype, device=X.device)
@@ -245,18 +266,21 @@ def _fused_sweep_cuda(X, C, u, v, *, spec, row_mask):
         raise ValueError(f"{what}: empty operand (n={n}, M={M}, d={d})")
     _check_operands(what, X.device, X=X, C=C, u=u, v=v, row_mask=mask)
     P = _pad_p(p)
-    smem, w_in_smem = sweep_smem_bytes(M, p)
+    smem, w_in_smem = sweep_smem_bytes(M, p, d)
     w = torch.empty(M, p, dtype=torch.float32, device=X.device)
     counter = torch.zeros(1, dtype=torch.int32, device=X.device)
-    nbi, _ = sweep_tile_grid(n, M)
+    nbi, nbj = sweep_tile_grid(n, M)
+    # the prologue's centers: per 128-center tile, C k-major, ||c||^2, u
+    packed = torch.empty(nbj * (d + 1 + P) * SWEEP_BN, dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
         lib = _lib()
-        grid = min(_sweep_grid(P, smem, X.device.index), nbi)
+        kp = _kparams(spec)
+        grid = min(_sweep_grid(P, kp[0], smem, X.device.index), nbi)
         partial = torch.empty(grid * M * P, dtype=torch.float32, device=X.device)
         code = lib.rt_fused_sweep(
             _ptr(X), _ptr(C), _ptr(u), _ptr(v), _ptr(mask), n, M, d, p,
-            *_kparams(spec), P, int(w_in_smem), smem, grid,
-            _ptr(partial), _ptr(w), _ptr(counter), _stream(X.device))
+            *kp, P, int(w_in_smem), smem, grid,
+            _ptr(packed), _ptr(partial), _ptr(w), _ptr(counter), _stream(X.device))
         _check(code, what)
         fused_sweep.launches += 1
     return w, counter[0]
@@ -453,8 +477,9 @@ def sharded_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
     are concatenated. Each Gram entry is evaluated twice. Any p >= 1: the
     columns run in groups of at most MAX_P, the whole schedule once per
     group. This wrapper counts one launch per group on a CUDA tensor, and
-    each B2 launch inside it counts on ``kernel_matmul``'s counter too. Only float32 ``t_dtype`` /
-    ``out_dtype`` (or None) are taken: the others are ROADMAP A7.
+    each B2 launch inside it counts on ``kernel_matmul``'s counter too.
+    Only float32 ``t_dtype`` / ``out_dtype`` (or None) are taken: the
+    others are ROADMAP A7.
     """
     for name, dt in (("t_dtype", t_dtype), ("out_dtype", out_dtype)):
         if dt not in (None, torch.float32):

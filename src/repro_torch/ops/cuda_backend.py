@@ -4,9 +4,10 @@ Counterpart of ``repro/ops/pallas_backend.py``:
 
 * ``sweep`` — routed by :func:`repro_torch.ops.base.plan_sweep`:
 
-  - ``fused`` — ONE launch of the CUDA sweep kernel (B1) per CG iteration,
-    each Gram tile evaluated twice (forward pass, then transposed pass),
-    its w partials in a device workspace of grid x M x P floats;
+  - ``fused`` — the CUDA sweep (B1: its center prologue, the sweep kernel,
+    the partial sum) per CG iteration and column group, each Gram tile
+    evaluated twice (forward pass, then transposed pass), its w partials in
+    a device workspace of grid x M x P floats;
   - ``two_pass`` / ``j_sharded`` — past the workspace budget, the sharded
     sweep (B4): B2 launches with t spilled to device memory, per C-shard.
     Leaving the fused route emits a ``SweepPlanWarning``.
@@ -53,9 +54,9 @@ class CudaKernelOps(OpsBase):
         width = max(p, 1) * max(systems, 1)
         group = min(width, km.MAX_P)
         bm, bn = km.sweep_block_dims(n, M)
-        smem, _ = km.sweep_smem_bytes(M, group)
+        smem, _ = km.sweep_smem_bytes(M, group, d)
         return plan_sweep(n, M, d, p, bm=bm, bn=bn, width=km._pad_p(group),
-                          scratch_bytes=smem, grid=km.sweep_grid_model(M, group),
+                          scratch_bytes=smem, grid=km.sweep_grid_model(M, group, d),
                           systems=systems, policy=self.policy)
 
     def sweep(self, X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None,

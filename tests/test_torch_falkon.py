@@ -205,10 +205,10 @@ def test_multiclass_fit_on_the_cuda_backend():
     # the column groups add nothing the plain backend does not round alike
     assert rel(st.alpha, solve["torch"].alpha) <= 1e-5
     assert rel(st.residual_norms, jst.residual_norms) <= BOUNDS["residual"]
-    # one-hot targets are worse conditioned than _problem's: both port
-    # backends measured 1.53e-3 (alpha) and 1.48e-4 (predictions) from the
-    # reference here, and the reference's own one-column solves stand
-    # 3.5e-4 to 1.9e-3 from its 6-column solve; ~3x headroom
+    # one-hot targets are worse conditioned than _problem's: on this problem
+    # both port backends stand 1.53e-3 (alpha) and 1.48e-4 (predictions)
+    # from the reference, whose own one-column solves stand 3.5e-4 to
+    # 1.9e-3 from its 6-column solve; ~3x headroom
     assert rel(st.alpha, jst.alpha) <= 5e-3
     X_new = np.random.default_rng(9).standard_normal((100, D)).astype(np.float32)
     pred = FalkonEstimator(Ct, st.alpha, kern, ops_impl="cuda").predict(X_new)

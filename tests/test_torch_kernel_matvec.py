@@ -177,15 +177,23 @@ def test_kernel_operand_rules():
 
 
 def test_sweep_tiling_and_shared_memory_plan():
-    assert km.sweep_block_dims(10, 10) == (64, 64)
-    assert km.sweep_tile_grid(4_000_000, 10_000) == (62_500, 157)
-    # the main path (M = 10^4, p = 1) keeps its w partial in shared memory
-    smem, in_smem = km.sweep_smem_bytes(10_000, 1)
-    assert in_smem and smem == km.TILE_SMEM_BYTES + 4 * (64 + 64 + 16 * 64) + 4 * 10_000
+    assert km.sweep_block_dims(10, 10) == (128, 128)
+    assert km.sweep_tile_grid(4_000_000, 10_000) == (31_250, 79)
+    # the main path (M = 10^4, d = 18, p = 1) keeps its w partial in shared
+    # memory: C ring 2 x 18 k-rows, extras 2 x (1 + 1), X 18 x 132, t,
+    # reduction 4 x 1, norms (x 128 floats each but X's padded rows)
+    smem, in_smem = km.sweep_smem_bytes(10_000, 1, 18)
+    base = 4 * (2 * 18 * 128 + 2 * 2 * 128 + 18 * 132 + 128 + 4 * 128 + 128)
+    assert in_smem and smem == base + 4 * 10_000
     assert smem <= km.W_SMEM_LIMIT
-    smem, in_smem = km.sweep_smem_bytes(100_000, 3)
-    assert not in_smem and smem == km.TILE_SMEM_BYTES + 4 * 4 * (64 + 64 + 16 * 64)
-    # the tiling constants the CUDA sources assume
+    smem, in_smem = km.sweep_smem_bytes(100_000, 3, 18)
+    assert not in_smem and smem == 4 * (2 * 18 * 128 + 2 * 5 * 128 + 18 * 132 + 4 * 128
+                                        + 4 * 4 * 128 + 128)
+    # the ring stays 32 k-rows deep and X resident up to d = 128
+    assert km.sweep_smem_bytes(10**6, 1, 90)[0] == 4 * (2 * 32 * 128 + 2 * 2 * 128 + 90 * 132
+                                                        + 128 + 4 * 128 + 128)
+    assert km.sweep_smem_bytes(10**6, 1, 512)[0] == km.sweep_smem_bytes(10**6, 1, 128)[0]
+    # the tiling constants the CUDA sources assume (B0 for B2 and B3)
     assert km.TILE_SMEM_BYTES == 17152
     kind, sigma, coef, ss, c, degree = km._kparams(tk.make_kernel("gaussian", sigma=4.0).spec)
     assert (kind, sigma, coef) == (0, 4.0, -0.5 / 16.0)
@@ -270,7 +278,7 @@ def test_wide_rhs_plan_is_per_group():
     wide, four = ops.plan(n, M, d, 17), ops.plan(n, M, d, 4)
     assert (wide.path, wide.p) == ("fused", 17)
     assert wide.io_bytes == four.io_bytes
-    assert wide.io_bytes == min(km.sweep_grid_model(M, 4), -(-n // wide.block_m)) * M * 4 * 4
-    assert wide.scratch_bytes == km.sweep_smem_bytes(M, 4)[0]
+    assert wide.io_bytes == min(km.sweep_grid_model(M, 4, d), -(-n // wide.block_m)) * M * 4 * 4
+    assert wide.scratch_bytes == km.sweep_smem_bytes(M, 4, d)[0]
     stacked = ops.plan(n, M, d, 3, systems=6)
     assert (stacked.p, stacked.systems, stacked.io_bytes) == (18, 6, four.io_bytes)

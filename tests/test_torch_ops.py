@@ -59,7 +59,7 @@ def test_registry_and_errors():
 def test_plans():
     kern = make_kernel("gaussian")
     plan = get_ops("cuda", kern).plan(4_000_000, 10_000, 18)
-    assert (plan.path, plan.block_m, plan.block_n) == ("fused", 64, 64)
+    assert (plan.path, plan.block_m, plan.block_n) == ("fused", 128, 128)
     assert plan.shard_m is None and plan.io_bytes <= plan.workspace_budget_bytes
     assert plan.hbm_bytes == 4 * ((4_000_000 + 10_000) * 18 + 4_000_000 + 2 * 10_000)
     tplan = get_ops("torch", kern, block_size=512).plan(1000, 64, 5, p=2, systems=3)
@@ -123,7 +123,7 @@ def test_cuda_backend_sweep_with_stats_counts_two_evals_per_tile():
     X, C, u, v = map(torch.from_numpy, _data(n, M, d, None, seed=6))
     ops = get_ops("cuda", make_kernel("gaussian", sigma=2.0))
     w, count = ops.sweep_with_stats(X, C, u, v)
-    assert int(count) == 2 * 5 * 2
+    assert int(count) == 2 * 3 * 1
     torch.testing.assert_close(w, ops.sweep(X, C, u, v), rtol=0, atol=0)
 
 

@@ -152,13 +152,13 @@ def test_plan_sweep_routes_main_path_shapes_fused():
     for n, M, d in ((4_000_000, 10_000, 18), (463_715, 50_000, 90)):
         plan = ops.plan(n, M, d)
         assert plan.path == "fused" and plan.shard_m is None
-        grid = km.sweep_grid_model(M, 1)
-        assert plan.io_bytes == min(grid, -(-n // 64)) * M * 4
+        grid = km.sweep_grid_model(M, 1, d)
+        assert plan.io_bytes == min(grid, -(-n // 128)) * M * 4
         assert plan.io_bytes <= plan.workspace_budget_bytes
-        assert plan.scratch_bytes == km.sweep_smem_bytes(M, 1)[0]
-    # M = 5x10^4: w partials in global memory, 8 blocks of 256 threads per SM
-    assert km.sweep_grid_model(50_000, 1) == 132 * 8
-    assert ops.plan(463_715, 50_000, 90).io_bytes == 1056 * 50_000 * 4
+        assert plan.scratch_bytes == km.sweep_smem_bytes(M, 1, d)[0]
+    # M = 5x10^4, d = 90: w partials in global memory, two 85 KB blocks per SM
+    assert km.sweep_grid_model(50_000, 1, 90) == 132 * 2
+    assert ops.plan(463_715, 50_000, 90).io_bytes == 264 * 50_000 * 4
 
 
 def test_plan_sweep_transitions_with_budget():
@@ -190,9 +190,9 @@ def test_backend_env_override_routes_and_matches(monkeypatch):
                      .sweep(J(X), J(C), J(u), J(v)))
     assert ops.plan(n, M, d, 2).path == "fused"
     assert_close(ops.sweep(T(X), T(C), T(u), T(v)), ref)
-    # fused workspace: 32 row blocks x M x 4 columns x 4 B = 170,496 B
-    assert ops.plan(n, M, d, 2).io_bytes == 32 * M * 4 * 4
-    budgets = {"two_pass": 0.1, "j_sharded": 128 * 4 * (d + 4) / 2**20}
+    # fused workspace: 16 row blocks x M x 4 columns x 4 B = 85,248 B
+    assert ops.plan(n, M, d, 2).io_bytes == 16 * M * 4 * 4
+    budgets = {"two_pass": 0.05, "j_sharded": 128 * 4 * (d + 4) / 2**20}
     for path, mb in budgets.items():
         monkeypatch.setenv("REPRO_SWEEP_BUDGET_MB", str(mb))
         plan = ops.plan(n, M, d, 2)
@@ -206,7 +206,7 @@ def test_backend_env_override_routes_and_matches(monkeypatch):
             ops.sweep_with_stats(T(X), T(C), T(u), T(v))
     monkeypatch.delenv("REPRO_SWEEP_BUDGET_MB")
     w, count = ops.sweep_with_stats(T(X), T(C), T(u), T(v))
-    assert int(count) == 2 * 32 * 6
+    assert int(count) == 2 * 16 * 3
 
 
 def test_torch_backend_plan_fields():
