@@ -18,8 +18,12 @@ result line:
                (p = 3) and M = 20500 (p = 1), where its w partials live in
                global memory, and around its 128 x 128 tile (n, M in 1,
                127, 128, 129; d in 1, 18, 90, 129: one k-chunk, several,
-               and X staged again per tile past d = 128; p = 1 and 4); B4
-               also against B1, with ragged shards.
+               and X staged again per tile past d = 128; p = 1 and 4); B2
+               likewise around its tile (m, n and d as B1's; p = 1 and 4,
+               with and without ``add=``, the five kinds, on the unsplit
+               and the most-split grid), its shared memory, resident blocks
+               and split of B's tiles against their Python mirror; B4 also
+               against B1, with ragged shards.
 4. blocked  — the blocked Cholesky's tile kernels B5-B7 against their
                twins at the ragged test shapes, a 1280 tile and the last
                80-wide panel's update (k = 1280); B5 at widths around its
@@ -57,11 +61,14 @@ result line:
                the predict-shape kernel matmul against float32 and float64
                twins; the MillionSongs fit's blocked T and A against
                in-core float32 (cuSOLVER) and float64 factors of the same
-               matrices; B1 at the SUSY shape twice, bit-equal; B6 and B7 at
+               matrices; B1 at the SUSY shape and B2 at the predict shape
+               and at one launch of B4's transposed pass, each twice,
+               bit-equal; B6 and B7 at
                the first panel's shapes against their twins (B6 twice,
                bit-equal); each kernel at its path's shapes (CUDA events)
-               beside its plain twin, its bound and its library call; B1's
-               (at both fits' shapes), B5's and B6's device operations per
+               beside its plain twin, its bound and its library call (B2
+               also at B4's transposed shape); B1's (at both fits' shapes),
+               B2's (at both of its), B5's and B6's device operations per
                call by name (``torch.profiler``); then one ``kernels`` JSON
                line.
 
@@ -103,6 +110,9 @@ WIDTHS = (1, 2, 3, 4, 5, 8, 17)
 #: one k-chunk (1, 18), several (90), and past the resident X block (129)
 EDGE_NM = (1, 127, 128, 129)
 EDGE_D = (1, 18, 90, 129)
+#: (m, n, d) of B2 on the path: SUSY's predict, the MillionSongs predict and
+#: B4's transposed pass (C's 17,280-row shard against a 65,536-row X chunk)
+MATMUL_PATH_SHAPES = [(500_000, 10_000, 18), (51_630, 50_000, 90), (17_280, 65_536, 90)]
 #: (n, M, d, p) of sweeps whose w partials overflow shared memory
 SWEEP_GLOBAL = [(40_000, 5_000, 18, 3), (40_000, 20_500, 18, 1)]
 #: (n, M, d, shard_m) of the sharded sweep B4: ragged shards; the last
@@ -353,7 +363,76 @@ def phase_kernels(torch):
         say(f"[kernels] B1 tile edges d={d}: n, M in {EDGE_NM}, p = 1 and 4 pass; worst "
             f"ratio {edge:.4f}")
         worst = max(worst, edge)
+    n_edge, edge = check_matmul_edges(torch, km, randn)
+    cases += n_edge
+    worst = max(worst, edge)
+    check_matmul_plan(torch, km)
     say(f"[kernels] {cases} checks pass; worst max|diff|/(1e-4 + 1e-4 max|ref|) = {worst:.4f} (bound 1)")
+
+
+def check_matmul_edges(torch, km, randn) -> tuple[int, float]:
+    """B2 around its 128 x 128 tile for the five kinds: m, n in EDGE_NM, d in
+    EDGE_D (one k-chunk, several, A staged again per tile past 128), p = 1
+    and 4, with and without ``add``, on the unsplit grid (slots = 1: S = 1)
+    and the most-split one (S = min(nbj, 16)). Inputs scaled by 1/sqrt(d),
+    so that no kind's entries vanish at d = 129. Returns (checks, worst
+    ratio)."""
+    from repro_torch.core.kernels import make_kernel
+    cases, worst, split = 0, 0.0, 0
+    lib = km._lib()
+    for kind, params in KINDS:
+        spec = make_kernel(kind, **params).spec
+        for d in EDGE_D:
+            for m in EDGE_NM:
+                for n in EDGE_NM:
+                    for p in (1, 4):
+                        A, B = randn(m, d) / d ** 0.5, randn(n, d) / d ** 0.5
+                        V, add = randn(n, p), randn(m, p)
+                        for a in (None, add):
+                            ref = km.kernel_matmul_plain(A, B, V, a, spec=spec)
+                            for slots in (1, 1 << 30):
+                                split += lib.rt_matmul_slices(m, n, slots) > 1
+                                got = km._kernel_matmul_cuda(A, B, V, a, spec=spec, slots=slots)
+                                abs_err, ratio = close_err(got, ref)
+                                cases += 1
+                                worst = max(worst, ratio)
+                                check(ratio <= 1.0, f"B2 {kind} m,n,d={m},{n},{d} p={p} add="
+                                      f"{a is not None} slots={slots}: max abs err {abs_err:.3e} "
+                                      f"exceeds atol 1e-4 + rtol 1e-4 (ratio {ratio:.3f})")
+    torch.cuda.synchronize()
+    say(f"[kernels] B2 tile edges: m, n in {EDGE_NM}, d in {EDGE_D}, p = 1 and 4, with and "
+        f"without add, five kinds, unsplit and split grids ({split} split launches): {cases} "
+        f"checks pass; worst ratio {worst:.4f}")
+    return cases, worst
+
+
+def check_matmul_plan(torch, km) -> None:
+    """B2's plan on the card against its Python mirror: shared memory and
+    resident blocks (the occupancy query against the model) at each path's
+    depth, and the C split rule against ``matmul_slices`` at the path's
+    shapes and a grid of others."""
+    dev = torch.cuda.current_device()
+    lib = km._lib()
+    for p in (1, 4):
+        for d in (18, 90):
+            smem, slots = km._matmul_slots(km._pad_p(p), km.KIND_CODES["gaussian"], d, dev)
+            model = km.matmul_grid_model(p, d)
+            say(f"[kernels] B2 plan p={p} d={d}: shared memory {smem} B (mirror "
+                f"{km.matmul_smem_bytes(p, d)}), resident blocks {slots} (model {model})")
+            check(smem == km.matmul_smem_bytes(p, d) and slots == model,
+                  f"B2's plan at p={p} d={d} is not its mirror's")
+    for m, n, d in MATMUL_PATH_SHAPES:
+        slots = km._matmul_slots(1, km.KIND_CODES["gaussian"], d, dev)[1]
+        S = lib.rt_matmul_slices(m, n, slots)
+        say(f"[kernels] B2 m={m} n={n} d={d}: {S} slices on {slots} resident blocks")
+        check(S == km.matmul_slices(m, n, slots), f"B2's split at m={m} n={n} is not the mirror's")
+    grid = [1, 127, 129, 1000, 17_280, 51_630, 500_000]
+    for m in grid:
+        for n in grid + [65_536]:
+            for slots in (132, 264):
+                check(lib.rt_matmul_slices(m, n, slots) == km.matmul_slices(m, n, slots),
+                      f"B2's split at m={m} n={n} slots={slots} is not the mirror's")
+    say(f"[kernels] B2 split rule: C and mirror agree on {len(grid) * (len(grid) + 1) * 2} shapes")
 
 
 def check_sharded(torch, km, spec, X, C, u, v, shard: int, res: dict, tag: str) -> None:
@@ -944,6 +1023,10 @@ def phase_times(torch, main, msd) -> list[dict]:
           f"largest prediction {top:.4f}")
     check(abs_err <= limit and err64 <= limit,
           f"predict-shape kernel matmul off its twins ({abs_err:.3e}, {err64:.3e} > {limit:.3e})")
+    again = torch.equal(out, km.kernel_matmul(Xt, Cc, alpha, spec=spec).double())
+    say(f"[times] predict-shape kernel matmul, two runs bit-equal: {again}")
+    check(again, "B2 at the predict shape is not deterministic")
+    breakdown(torch, f"B2 m={m} n={M} d={d}", lambda: km.kernel_matmul(Xt, Cc, alpha, spec=spec))
     ms = time_cuda(torch, lambda: km.kernel_matmul(Xt, Cc, alpha, spec=spec), 10)
     plain = time_cuda(torch, lambda: km.kernel_matmul_plain(Xt, Cc, alpha[:, None], spec=spec), 3)
     b, by = bound(m * M * (2 * d + 10 + 2), 4 * (m * d + M * d + M + m))
@@ -1013,6 +1096,7 @@ def msd_times(torch, msd) -> list[dict]:
         f"({-(-M // shard)} shards of {shard}) {ms4:.4f} ms, bound {b:.4f} ms ({by})")
     rows.append(dict(name="sharded_sweep", ms=ms4, plain_ms=plain4, bound_ms=b, bound_by=by,
                      max_abs_err=e4, shape=f"n={n} M={M} d={d} p=1 shard_m={shard}"))
+    matmul_transposed(torch, km, X, C, spec, shard)
 
     factor_witness(torch, msd)
 
@@ -1064,6 +1148,33 @@ def msd_times(torch, msd) -> list[dict]:
                      library="torch.addmm", bound_ms=b7, bound_by=by7, max_abs_err=e7,
                      shape=f"r={r} b={blk} k={blk}"))
     return rows
+
+
+def matmul_transposed(torch, km, X, C, spec, shard: int) -> None:
+    """B2 at one launch of B4's transposed pass (C's first shard against X's
+    first SHARD_ROW_CHUNK rows, ``add=``): against its twin, bit-equal over
+    two runs, its device operations, and its time beside its bound."""
+    Cj, Xr = C[:shard], X[:km.SHARD_ROW_CHUNK]
+    m, n, d = Cj.shape[0], Xr.shape[0], X.shape[1]
+    g = torch.Generator(device=DEVICE).manual_seed(10)
+    t = torch.randn(n, 1, generator=g, device=DEVICE)
+    w = torch.randn(m, 1, generator=g, device=DEVICE)
+    mm = lambda: km.kernel_matmul(Cj, Xr, t, w, spec=spec)
+    got = mm()
+    abs_err, ratio = close_err(got, km.kernel_matmul_plain(Cj, Xr, t, w, spec=spec))
+    again = torch.equal(got, mm())
+    S = km._lib().rt_matmul_slices(m, n, km._matmul_slots(1, km.KIND_CODES[spec.kind], d,
+                                                          torch.cuda.current_device())[1])
+    say(f"[times] B2 at B4's transposed shape m={m} n={n} d={d} ({S} slices): vs twin "
+        f"{abs_err:.3e} (ratio {ratio:.4f}); two runs bit-equal: {again}")
+    check(ratio <= 1.0 and again, "B2 at B4's transposed shape is off its twin or not "
+          "deterministic")
+    breakdown(torch, f"B2 m={m} n={n} d={d}", mm, each=True)
+    ms = time_cuda(torch, mm, 10)
+    b, by = bound(m * n * (2 * d + 10 + 2), 4 * (m * d + n * d + n + 2 * m))
+    say(f"[times] B2 at B4's transposed shape m={m} n={n} d={d}: kernel {ms:.4f} ms, bound "
+        f"{b:.4f} ms ({by}); {-(-C.shape[0] // m)} shards x {-(-X.shape[0] // n)} such launches "
+        "a sweep")
 
 
 def breakdown(torch, tag: str, fn, each: bool = False) -> None:

@@ -36,7 +36,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-#: argtypes of every C entry point; each returns a cudaError_t as int
+#: argtypes of every C entry point; each returns a cudaError_t as int, but
+#: ``rt_tile_smem_bytes`` (bytes) and ``rt_matmul_slices`` (a count)
 _SIGNATURES = {
     # kernel_matvec.cu: B1-B3
     "rt_tile_smem_bytes": [],
@@ -44,8 +45,10 @@ _SIGNATURES = {
     "rt_fused_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _F, _F, _F, _F, _I,
                        _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "rt_matmul_slots": [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "rt_matmul_slices": [_I, _I, _I],
     "rt_kernel_matmul": [_P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _F, _F, _F, _F, _I, _I, _P, _P],
+                         _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P],
     "rt_pairwise": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P],
     # blocked_cholesky.cu: B5-B7
     "rb_potrf": [_P, _P, _I, _P],

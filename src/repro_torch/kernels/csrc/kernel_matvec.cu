@@ -38,15 +38,23 @@
 //     reduce_partials then sums the G partials in block order: the result is
 //     deterministic, with no float atomics. The one atomic is the integer
 //     tile-evaluation counter, which reports 2 * nbi * nbj in 128 x 128
-//     tiles. B1 has its own tile code; B2-B4 keep B0 (tile.cuh).
+//     tiles. The tile code (TileWalk: the staging, the ring, the evaluation
+//     and pass 1) is B1's and B2's; B3 keeps B0 (tile.cuh).
 //
 // B2  kernel_matmul_kernel  out = K(A,B) V + add
 //     Replaces repro/kernels/kernel_matvec.py::kernel_matmul_pallas /
-//     _kernel_matmul_kernel. Bound: fp32 FMA issue, m*n*(2d + 10 + 2p) flops
-//     against 67 TFLOP/s. Design: one block per 64-row block of A loops over
-//     the B tiles with the pass-1 code of B1 (register accumulation, one
-//     shuffle reduction at the end); padded B rows are masked; `add` is
-//     added at the final store. No cross-block reduction.
+//     _kernel_matmul_kernel. Bound: fp32 FMA issue, m*n*(2d + 12) flops at
+//     p = 1 against 67 TFLOP/s; its bytes (A, B, V, out) are negligible.
+//     Design: B1's pass 1 alone, on B1's tile code. pack_centers packs B
+//     (in C's place, V in u's) once per call; block (i, s) stages A's row
+//     block i once and streams slice s of B's packed tiles through the
+//     ring, accumulates t in registers and reduces it once, in B1's order.
+//     One kernel per kernel kind. When A has too few row blocks to fill the
+//     card (B4's transposed pass: 135 row blocks on 264 resident blocks),
+//     matmul_slices splits B's tiles into S contiguous slices; each block
+//     writes its (128, p) slice partial and reduce_partials sums them in
+//     slice order, then adds `add`: deterministic, with no float atomics.
+//     With S = 1 the block adds `add` and stores out itself.
 //
 // B3  pairwise_kernel       K(A,B) materialized
 //     Replaces repro/kernels/kernel_matvec.py::pairwise_kernel_pallas /
@@ -61,49 +69,6 @@
 #include "tile.cuh"
 
 namespace rt {
-
-// The whole of B2: t[i][c] = sum_j K(A_row, B_j) V[j][c]
-// for this thread's rows (r0 + ty + TY*i), over every B tile. V is staged
-// per tile into vs (BN x P, zero past n and p). On return every lane of a
-// row holds the full row sum.
-template <int P>
-__device__ __forceinline__ void forward_rows(const float* __restrict__ A, int m,
-                                             const float* __restrict__ B, int n, int d,
-                                             const float* __restrict__ V, int p, int r0,
-                                             TileSmem& s, float* vs, const KParams& kp,
-                                             float t[TM][P], int& evals) {
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int c = 0; c < P; ++c) t[i][c] = 0.0f;
-  const int nbj = (n + BN - 1) / BN;
-  for (int bj = 0; bj < nbj; ++bj) {
-    const int c0 = bj * BN;
-    __syncthreads();  // vs of the previous tile is no longer read
-    for (int e = tid; e < BN * P; e += NT) {
-      const int r = e / P;
-      const int c = e - r * P;
-      vs[e] = (c0 + r < n && c < p) ? V[(size_t)(c0 + r) * p + c] : 0.0f;
-    }
-    float k[TM][TN];
-    eval_tile(A, m, B, n, d, r0, c0, s, kp, k);  // its barrier publishes vs
-    ++evals;
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-#pragma unroll
-      for (int c = 0; c < P; ++c) {
-        const float vj = vs[(tx + TX * j) * P + c];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) t[i][c] = fmaf(k[i][j], vj, t[i][c]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int c = 0; c < P; ++c) t[i][c] = row_sum(t[i][c]);
-}
 
 // ---------------------------------------------------------------------------
 // B1: the sweep's own tile
@@ -200,19 +165,21 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ X, int n, int 
   }
 }
 
-// A block's center stream: each pass walks tiles 0..nbj-1, a tile's k-chunks
-// consecutive. The n-th chunk fetched lands in ring slot n & 1; a tile's
-// first chunk also brings its extras into extras slot (tile sequence) & 1.
+// A block's stream of packed tiles: each pass walks tiles j0..j1-1, a
+// tile's k-chunks consecutive. The n-th chunk fetched lands in ring slot
+// n & 1; a tile's first chunk also brings its extras into extras slot
+// (tile sequence) & 1.
 struct ChunkCursor {
   int chunk;   // k-chunk of the next chunk to fetch
-  int tile;    // its center tile
+  int tile;    // its packed tile
   int tseq;    // tiles begun before it, over the whole stream
   int slot;    // its ring slot
 };
 
 template <int P>
 __device__ __forceinline__ void fetch_chunk(const float* __restrict__ packed, int d, int nkc,
-                                            int nbj, ChunkCursor& cur, float* cs, float* ex) {
+                                            int j0, int j1, ChunkCursor& cur, float* cs,
+                                            float* ex) {
   const int k0 = cur.chunk * SW_KC;
   const int rows = min(SW_KC, d - k0);
   const int cr = min(d, SW_KC);
@@ -231,68 +198,79 @@ __device__ __forceinline__ void fetch_chunk(const float* __restrict__ packed, in
   if (++cur.chunk == nkc) {
     cur.chunk = 0;
     ++cur.tseq;
-    if (++cur.tile == nbj) cur.tile = 0;
+    if (++cur.tile == j1) cur.tile = j0;
   }
 }
 
+// The tile code B1 and B2 share: one block's 128-row blocks of X (B2: A)
+// against its stream of packed tiles j0..j1-1 (B1: every center tile, twice
+// per row block; B2: one slice of B's tiles, once). The shared-memory
+// regions are the caller's: cs [2][min(d, 32)][128] (the ring), ex
+// [2][1 + P][128] (the extras ring), xs [min(d, 128)][SW_LDX] (the X block,
+// k-major) and a2s [128] (its row norms).
 template <int P, int KIND>
-__global__ void __launch_bounds__(SW_NT, P == 1 ? 2 : 1)
-    fused_sweep_kernel(const float* __restrict__ X, const float* __restrict__ packed,
-                       const float* __restrict__ v, const float* __restrict__ mask, int n, int M,
-                       int d, int p, KParams kp, int w_in_smem, float* __restrict__ partial,
-                       int* __restrict__ counter) {
-  extern __shared__ float4 smem4[];
-  const int cr = min(d, SW_KC);
-  const int xr = min(d, SW_XK);
-  float* cs = reinterpret_cast<float*>(smem4);   // [2][cr][128]
-  float* ex = cs + 2 * cr * SW_BN;               // [2][1 + P][128]
-  float* xs = ex + 2 * (1 + P) * SW_BN;          // [xr][SW_LDX]
-  float* ts = xs + xr * SW_LDX;                  // [P][128]
-  float* red = ts + P * SW_BM;                   // [4][P][128]
-  float* a2s = red + 4 * P * SW_BN;              // [128]
-  float* wsm = a2s + SW_BM;                      // [M][P] when w_in_smem
-  float* gpart = partial + (size_t)blockIdx.x * M * P;
-  float* wpart = w_in_smem ? wsm : gpart;
+struct TileWalk {
+  const float* __restrict__ X;
+  const float* __restrict__ packed;
+  int n, d, nkc, j0, j1;
+  KParams kp;
+  float *cs, *ex, *xs, *a2s;
+  int ty, tx;        // B7's map: a warp covers 4 x 8 threads, 32 rows and 64 columns
+  long total;        // chunks this block computes
+  long s = 0;        // the next chunk to compute
+  int tseq = 0;      // tiles begun
+  int r0 = 0;        // first row of the staged X block
+  int evals = 0;     // tiles evaluated
+  ChunkCursor cur;   // the next chunk to fetch
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  // B7's map: a warp covers 4 x 8 threads, 32 rows and 64 columns
-  const int ty = (warp / 2) * 4 + lane / 8;
-  const int tx = (warp % 2) * 8 + lane % 8;
+  __device__ __forceinline__ TileWalk(const float* X_, const float* packed_, int n_, int d_,
+                                      int j0_, int j1_, long total_, KParams kp_, float* cs_,
+                                      float* ex_, float* xs_, float* a2s_)
+      : X(X_), packed(packed_), n(n_), d(d_), nkc((d_ + SW_KC - 1) / SW_KC), j0(j0_), j1(j1_),
+        kp(kp_), cs(cs_), ex(ex_), xs(xs_), a2s(a2s_), total(total_), cur{0, j0_, 0, 0} {
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    ty = (warp / 2) * 4 + lane / 8;
+    tx = (warp % 2) * 8 + lane % 8;
+    fetch_chunk<P>(packed, d, nkc, j0, j1, cur, cs, ex);   // the stream's first chunk
+  }
 
-  const int nbi = (n + SW_BM - 1) / SW_BM;
-  const int nbj = (M + SW_BN - 1) / SW_BN;
-  const int nkc = (d + SW_KC - 1) / SW_KC;
-  const bool resident = d <= SW_XK;
-  const int my_blocks = (nbi - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const long total = (long)my_blocks * 2 * nbj * nkc;   // chunks this block computes
-  long s = 0;                                           // the next chunk to compute
-  int tseq = 0;                                         // tiles begun
-  ChunkCursor cur = {0, 0, 0, 0};                       // the next chunk to fetch
+  // X[row0 : row0 + 128] into xs (when it stays resident, d <= 128) and its
+  // row norms into a2s. Between two barriers of the caller.
+  __device__ __forceinline__ void stage_rows(int row0) {
+    r0 = row0;
+    if (d <= SW_XK) stage_x(X, n, d, r0, 0, d, xs);
+    const int tid = threadIdx.x;
+    if (tid < SW_BM) {
+      float nrm = 0.0f;   // fmaf in k order, as pack_centers and B0 sum
+      if (r0 + tid < n)
+        for (int k = 0; k < d; ++k) {
+          const float x = X[(size_t)(r0 + tid) * d + k];
+          nrm = fmaf(x, x, nrm);
+        }
+      a2s[tid] = nrm;
+    }
+  }
 
-  fetch_chunk<P>(packed, d, nkc, nbj, cur, cs, ex);
-  for (int e = tid; e < M * P; e += SW_NT) wpart[e] = 0.0f;   // read after a barrier
-
-  int evals = 0;
-  int r0 = 0;
-  // K(X_i, C_j) into acc, mapped; returns tile j's extras (||c||^2, u).
-  // The norms (and pass 2's t) are read from shared memory after the k
-  // loop, so that only acc and the k step's operands are live through it.
-  auto eval_tile = [&](float (&acc)[8][8]) -> const float* {
+  // K(X_i, C_j) of the stream's next tile into acc, mapped; returns the
+  // tile's extras (||c||^2, u). The norms (and B1's pass-2 t) are read from
+  // shared memory after the k loop, so that only acc and the k step's
+  // operands are live through it.
+  __device__ __forceinline__ const float* eval_tile(float (&acc)[8][8]) {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
     const int tile_seq = tseq++;
+    const int cr = min(d, SW_KC);
     for (int kc = 0; kc < nkc; ++kc, ++s) {
       cp_async_wait_all();
       __syncthreads();   // chunk s is visible; slot (s + 1) & 1 is no longer read
-      if (s + 1 < total) fetch_chunk<P>(packed, d, nkc, nbj, cur, cs, ex);
+      if (s + 1 < total) fetch_chunk<P>(packed, d, nkc, j0, j1, cur, cs, ex);
       const int k0 = kc * SW_KC;
       const int kr = min(SW_KC, d - k0);
       const float* xb = xs + k0 * SW_LDX;
-      if (!resident) {
+      if (d > SW_XK) {
         const int xk0 = (k0 / SW_XK) * SW_XK;
         if (k0 == xk0) {   // a new 128-deep chunk of X; every thread is past the last
           stage_x(X, n, d, r0, xk0, min(SW_XK, d - xk0), xs);
@@ -319,35 +297,22 @@ __global__ void __launch_bounds__(SW_NT, P == 1 ? 2 : 1)
     map_tile<KIND>(acc, a2, b2, kp);
     ++evals;
     return e;
-  };
+  }
 
-  for (int bi = blockIdx.x; bi < nbi; bi += gridDim.x) {
-    r0 = bi * SW_BM;
-    __syncthreads();   // the last row block no longer reads xs, ts, red or a2s
-    if (resident) stage_x(X, n, d, r0, 0, d, xs);
-    if (tid < SW_BM) {
-      float nrm = 0.0f;   // fmaf in k order, as pack_centers and B0 sum
-      if (r0 + tid < n)
-        for (int k = 0; k < d; ++k) {
-          const float x = X[(size_t)(r0 + tid) * d + k];
-          nrm = fmaf(x, x, nrm);
-        }
-      a2s[tid] = nrm;
-    }
-    __syncthreads();
-
-    // pass 1: t_i = K_i u, this thread's 8 columns of every tile
-    float t[8][P];
+  // Pass 1: t = K(X_i, C_j0..j1-1) u for this thread's 8 rows over its 8
+  // columns of every tile, in tile order, then over the 8 threads of a row
+  // in the warp. The row range's two warps are combined by combine_rows.
+  __device__ __forceinline__ void pass1(float (&t)[8][P]) {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int c = 0; c < P; ++c) t[i][c] = 0.0f;
-    for (int bj = 0; bj < nbj; ++bj) {
+    for (int bj = j0; bj < j1; ++bj) {
       float acc[8][8];
       const float* e = eval_tile(acc);
 #pragma unroll
       for (int c = 0; c < P; ++c) {
-        float uj[8];   // u is zero past M
+        float uj[8];   // u is zero past the packed rows
         load8(e + (1 + c) * SW_BN, tx * 4, uj);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
@@ -355,8 +320,6 @@ __global__ void __launch_bounds__(SW_NT, P == 1 ? 2 : 1)
           for (int j = 0; j < 8; ++j) t[i][c] = fmaf(acc[i][j], uj[j], t[i][c]);
       }
     }
-    // t over the 8 threads of a row in a warp, then over the row range's two
-    // warps (warp % 2 = 0 first), then v and the mask; padded rows give 0
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -365,42 +328,94 @@ __global__ void __launch_bounds__(SW_NT, P == 1 ? 2 : 1)
         t[i][c] += __shfl_xor_sync(0xffffffffu, t[i][c], 2);
         t[i][c] += __shfl_xor_sync(0xffffffffu, t[i][c], 4);
       }
-    const int mine = lane % 8;   // the row slot this lane reports
-    if (warp % 2 == 1) {
+  }
+};
+
+// The end of pass 1: t over the row range's two warps (warp % 2 = 0 first;
+// warp 1's sums go through red, [P][128]), then epi(r, c, t) once for each
+// row r of the block and column c < P, on a lane of warp 0. Synchronises the
+// block before epi.
+template <int P, class Epi>
+__device__ __forceinline__ void combine_rows(const float (&t)[8][P], float* red, int ty, Epi epi) {
+  const int warp = threadIdx.x / 32;
+  const int mine = threadIdx.x % 8;   // the row slot this lane reports
+  if (warp % 2 == 1) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (i == mine)
+    for (int i = 0; i < 8; ++i)
+      if (i == mine)
 #pragma unroll
-          for (int c = 0; c < P; ++c)
-            red[c * SW_BM + (i / 4) * SW_HALF + ty * 4 + i % 4] = t[i][c];
-    }
+        for (int c = 0; c < P; ++c) red[c * SW_BM + (i / 4) * SW_HALF + ty * 4 + i % 4] = t[i][c];
+  }
+  __syncthreads();
+  if (warp % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i == mine) {
+        const int r = (i / 4) * SW_HALF + ty * 4 + i % 4;
+#pragma unroll
+        for (int c = 0; c < P; ++c) epi(r, c, t[i][c] + red[c * SW_BM + r]);
+      }
+  }
+}
+
+template <int P, int KIND>
+__global__ void __launch_bounds__(SW_NT, P == 1 ? 2 : 1)
+    fused_sweep_kernel(const float* __restrict__ X, const float* __restrict__ packed,
+                       const float* __restrict__ v, const float* __restrict__ mask, int n, int M,
+                       int d, int p, KParams kp, int w_in_smem, float* __restrict__ partial,
+                       int* __restrict__ counter) {
+  extern __shared__ float4 smem4[];
+  const int cr = min(d, SW_KC);
+  const int xr = min(d, SW_XK);
+  float* cs = reinterpret_cast<float*>(smem4);   // [2][cr][128]
+  float* ex = cs + 2 * cr * SW_BN;               // [2][1 + P][128]
+  float* xs = ex + 2 * (1 + P) * SW_BN;          // [xr][SW_LDX]
+  float* ts = xs + xr * SW_LDX;                  // [P][128]
+  float* red = ts + P * SW_BM;                   // [4][P][128]
+  float* a2s = red + 4 * P * SW_BN;              // [128]
+  float* wsm = a2s + SW_BM;                      // [M][P] when w_in_smem
+  float* gpart = partial + (size_t)blockIdx.x * M * P;
+  float* wpart = w_in_smem ? wsm : gpart;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int nbi = (n + SW_BM - 1) / SW_BM;
+  const int nbj = (M + SW_BN - 1) / SW_BN;
+  const int nkc = (d + SW_KC - 1) / SW_KC;
+  const int my_blocks = (nbi - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  // every center tile twice per row block, each in nkc chunks
+  TileWalk<P, KIND> walk(X, packed, n, d, 0, nbj, (long)my_blocks * 2 * nbj * nkc, kp, cs, ex,
+                         xs, a2s);
+  const int ty = walk.ty;
+  const int tx = walk.tx;
+  for (int e = tid; e < M * P; e += SW_NT) wpart[e] = 0.0f;   // read after a barrier
+
+  for (int bi = blockIdx.x; bi < nbi; bi += gridDim.x) {
+    const int r0 = bi * SW_BM;
+    __syncthreads();   // the last row block no longer reads xs, ts, red or a2s
+    walk.stage_rows(r0);
     __syncthreads();
-    if (warp % 2 == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (i == mine) {
-          const int r = (i / 4) * SW_HALF + ty * 4 + i % 4;
-          const int row = r0 + r;
-#pragma unroll
-          for (int c = 0; c < P; ++c) {
-            float tv = t[i][c] + red[c * SW_BM + r];
-            if (row < n && c < p) {
-              if (v != nullptr) tv += v[(size_t)row * p + c];
-              if (mask != nullptr) tv *= mask[row];
-            } else {
-              tv = 0.0f;
-            }
-            ts[c * SW_BM + r] = tv;
-          }
-        }
-    }
+
+    // pass 1: t_i = K_i u, then v and the mask; padded rows give 0
+    float t[8][P];
+    walk.pass1(t);
+    combine_rows<P>(t, red, ty, [&](int r, int c, float tv) {
+      const int row = r0 + r;
+      if (row < n && c < p) {
+        if (v != nullptr) tv += v[(size_t)row * p + c];
+        if (mask != nullptr) tv *= mask[row];
+      } else {
+        tv = 0.0f;
+      }
+      ts[c * SW_BM + r] = tv;
+    });
     __syncthreads();
 
     // pass 2: w_j += K_ij^T t_i. This thread's 8 rows, then the 4 threads of
     // its warp on the same columns, then the 4 warps, in a fixed order
     for (int bj = 0; bj < nbj; ++bj) {
       float acc[8][8];
-      eval_tile(acc);
+      walk.eval_tile(acc);
       float wc[8][P];
 #pragma unroll
       for (int c = 0; c < P; ++c) {
@@ -447,50 +462,98 @@ __global__ void __launch_bounds__(SW_NT, P == 1 ? 2 : 1)
   if (w_in_smem) {
     for (int e = tid; e < M * P; e += SW_NT) gpart[e] = wsm[e];
   }
-  if (tid == 0) atomicAdd(counter, evals);
+  if (tid == 0) atomicAdd(counter, walk.evals);
 }
 
-// w[m][c] = sum over the G block partials, in block order.
+// w[m][c] = sum over the G partials in order (+ add[m][c]): B1's block
+// partials, B2's slice partials.
 __global__ void reduce_partials(const float* __restrict__ partial, int G, int M, int P, int p,
-                                float* __restrict__ w) {
+                                const float* __restrict__ add, float* __restrict__ w) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= M * p) return;
   const int m = e / p;
   const int c = e - m * p;
   float s = 0.0f;
   for (int g = 0; g < G; ++g) s += partial[((size_t)g * M + m) * P + c];
-  w[e] = s;
+  w[e] = add != nullptr ? s + add[e] : s;
 }
 
+// ---------------------------------------------------------------------------
+// B2: B1's pass 1 alone
+// ---------------------------------------------------------------------------
+// Shared-memory floats of one kernel-matmul block, in carve order: the ring,
+// the extras ring, the A block, the cross-warp buffer of t and the row
+// norms. Mirrored by repro_torch.kernels.kernel_matvec.matmul_smem_bytes.
 template <int P>
-__global__ void __launch_bounds__(NT)
-    kernel_matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                         const float* __restrict__ V, const float* __restrict__ add, int m,
-                         int n, int d, int p, KParams kp, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  TileSmem& s = *reinterpret_cast<TileSmem*>(smem4);
-  float* vs = reinterpret_cast<float*>(&s + 1);
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int r0 = blockIdx.x * BM;
-  int evals = 0;
-  float t[TM][P];
-  forward_rows<P>(A, m, B, n, d, V, p, r0, s, vs, kp, t, evals);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = r0 + ty + TY * i;
-      if (row >= m) continue;
-#pragma unroll
-      for (int c = 0; c < P; ++c) {
-        if (c < p) {
-          const size_t o = (size_t)row * p + c;
-          out[o] = add != nullptr ? t[i][c] + add[o] : t[i][c];
-        }
-      }
+__host__ __device__ constexpr size_t matmul_smem_floats(int d) {
+  return 2 * (size_t)(d < SW_KC ? d : SW_KC) * SW_BN + 2 * (size_t)(1 + P) * SW_BN +
+         (size_t)(d < SW_XK ? d : SW_XK) * SW_LDX + (size_t)P * SW_BM + SW_BM;
+}
+
+// Most slices of B's tiles one launch splits into.
+constexpr int MM_MAX_SLICES = 16;
+
+// The slices S of B's nbj tiles for nbi row blocks of A on `slots` resident
+// blocks: the S <= min(nbj, 16) with the fewest waves x (tiles a slice + 1),
+// the 1 standing for a block's own staging and epilogue; ties go to the
+// smaller S. A short grid (B4's transposed pass: 135 row blocks on 264
+// slots) splits; a long one (SUSY's predict, 3907 row blocks) does not.
+// Mirrored by repro_torch.kernels.kernel_matvec.matmul_slices.
+static int matmul_slices(int nbi, int nbj, int slots) {
+  int best = 1;
+  long best_cost = -1;
+  const int top = nbj < MM_MAX_SLICES ? nbj : MM_MAX_SLICES;
+  for (int S = 1; S <= top; ++S) {
+    const long waves = ((long)nbi * S + slots - 1) / slots;
+    const long cost = waves * ((nbj + S - 1) / S + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best = S;
+      best_cost = cost;
     }
   }
+  return best;
+}
+
+// Block (i, s) evaluates A's row block i against slice s of B's packed tiles
+// (tiles s*nbj/S .. (s+1)*nbj/S - 1) with B1's pass 1, then writes
+// out = t + add (S = 1) or its (128, p) slice partial (S > 1), which
+// reduce_partials sums in slice order before adding `add`.
+template <int P, int KIND>
+__global__ void __launch_bounds__(SW_NT, P == 1 ? 2 : 1)
+    kernel_matmul_kernel(const float* __restrict__ A, const float* __restrict__ packed,
+                         const float* __restrict__ add, int m, int n, int d, int p, KParams kp,
+                         float* __restrict__ partial, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int cr = min(d, SW_KC);
+  const int xr = min(d, SW_XK);
+  float* cs = reinterpret_cast<float*>(smem4);   // [2][cr][128]
+  float* ex = cs + 2 * cr * SW_BN;               // [2][1 + P][128]
+  float* xs = ex + 2 * (1 + P) * SW_BN;          // [xr][SW_LDX]
+  float* red = xs + xr * SW_LDX;                 // [P][128]
+  float* a2s = red + P * SW_BM;                  // [128]
+
+  const int nbj = (n + SW_BN - 1) / SW_BN;
+  const int S = gridDim.y;
+  const int slice = blockIdx.y;
+  const int j0 = (int)((long)slice * nbj / S);
+  const int j1 = (int)((long)(slice + 1) * nbj / S);
+  const int nkc = (d + SW_KC - 1) / SW_KC;
+  TileWalk<P, KIND> walk(A, packed, m, d, j0, j1, (long)(j1 - j0) * nkc, kp, cs, ex, xs, a2s);
+  const int r0 = blockIdx.x * SW_BM;
+  walk.stage_rows(r0);
+  __syncthreads();
+  float t[8][P];
+  walk.pass1(t);
+  combine_rows<P>(t, red, walk.ty, [&](int r, int c, float tv) {
+    const int row = r0 + r;
+    if (row >= m || c >= p) return;
+    if (S > 1) {
+      partial[((size_t)slice * m + row) * p + c] = tv;
+    } else {
+      const size_t o = (size_t)row * p + c;
+      out[o] = add != nullptr ? tv + add[o] : tv;
+    }
+  });
 }
 
 __global__ void __launch_bounds__(NT)
@@ -517,6 +580,8 @@ __global__ void __launch_bounds__(NT)
 
 using SweepKernel = void (*)(const float*, const float*, const float*, const float*, int, int,
                             int, int, KParams, int, float*, int*);
+using MatmulKernel = void (*)(const float*, const float*, const float*, int, int, int, int,
+                              KParams, float*, float*);
 
 // B1's instantiation for a kernel kind, with its dynamic shared memory set.
 template <int P>
@@ -532,19 +597,40 @@ static cudaError_t sweep_kernel(int kind, int smem_bytes, SweepKernel* k) {
   return cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
+// B2's, likewise.
 template <int P>
-static cudaError_t sweep_grid_t(int kind, int smem_bytes, int* grid) {
-  SweepKernel k = nullptr;
-  cudaError_t err = sweep_kernel<P>(kind, smem_bytes, &k);
-  if (err != cudaSuccess) return err;
+static cudaError_t matmul_kernel(int kind, int smem_bytes, MatmulKernel* k) {
+  switch (kind) {
+    case GAUSSIAN: *k = kernel_matmul_kernel<P, GAUSSIAN>; break;
+    case LAPLACIAN: *k = kernel_matmul_kernel<P, LAPLACIAN>; break;
+    case MATERN32: *k = kernel_matmul_kernel<P, MATERN32>; break;
+    case LINEAR: *k = kernel_matmul_kernel<P, LINEAR>; break;
+    case POLYNOMIAL: *k = kernel_matmul_kernel<P, POLYNOMIAL>; break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+}
+
+// Resident blocks of 256 threads of kernel k on the whole card.
+template <class K>
+static cudaError_t card_slots(K k, int smem_bytes, int* slots) {
   int dev = 0, sms = 0, occ = 0;
+  cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k, SW_NT, smem_bytes);
   if (err != cudaSuccess) return err;
-  *grid = (occ > 0 ? occ : 1) * sms;
+  *slots = (occ > 0 ? occ : 1) * sms;
   return cudaSuccess;
+}
+
+template <int P>
+static cudaError_t sweep_grid_t(int kind, int smem_bytes, int* grid) {
+  SweepKernel k = nullptr;
+  cudaError_t err = sweep_kernel<P>(kind, smem_bytes, &k);
+  if (err != cudaSuccess) return err;
+  return card_slots(k, smem_bytes, grid);
 }
 
 // B1's launches: pack_centers, fused_sweep_kernel, reduce_partials.
@@ -565,17 +651,42 @@ static cudaError_t sweep_t(const float* X, const float* C, const float* u, const
                                          counter);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int total = M * p;
-  reduce_partials<<<(total + 255) / 256, 256, 0, stream>>>(partial, grid, M, P, p, w);
+  reduce_partials<<<(total + 255) / 256, 256, 0, stream>>>(partial, grid, M, P, p, nullptr, w);
   return cudaGetLastError();
 }
 
+// B2's shared memory and resident blocks on the card for (P, kind, d).
+template <int P>
+static cudaError_t matmul_slots_t(int kind, int d, int* smem_bytes, int* slots) {
+  *smem_bytes = (int)(sizeof(float) * matmul_smem_floats<P>(d));
+  MatmulKernel k = nullptr;
+  cudaError_t err = matmul_kernel<P>(kind, *smem_bytes, &k);
+  if (err != cudaSuccess) return err;
+  return card_slots(k, *smem_bytes, slots);
+}
+
+// B2's launches: pack_centers (B k-major with ||b||^2 and V), the kernel on
+// an (nbi, S) grid, and for S > 1 reduce_partials over the slices.
 template <int P>
 static cudaError_t matmul_t(const float* A, const float* B, const float* V, const float* add,
-                            int m, int n, int d, int p, KParams kp, float* out,
-                            cudaStream_t stream) {
-  const int smem = (int)(sizeof(TileSmem) + sizeof(float) * BN * P);
-  const int blocks = (m + BM - 1) / BM;
-  kernel_matmul_kernel<P><<<blocks, NT, smem, stream>>>(A, B, V, add, m, n, d, p, kp, out);
+                            int m, int n, int d, int p, KParams kp, int slots, float* packed,
+                            float* partial, float* out, cudaStream_t stream) {
+  const int smem = (int)(sizeof(float) * matmul_smem_floats<P>(d));
+  MatmulKernel k = nullptr;
+  cudaError_t err = matmul_kernel<P>(kp.kind, smem, &k);
+  if (err != cudaSuccess) return err;
+  const int nbi = (m + SW_BM - 1) / SW_BM;
+  const int nbj = (n + SW_BN - 1) / SW_BN;
+  const int S = matmul_slices(nbi, nbj, slots);
+  if (S > 1 && partial == nullptr) return cudaErrorInvalidValue;
+  pack_centers<P><<<nbj, SW_BN, 0, stream>>>(B, V, n, d, p, packed);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  k<<<dim3(nbi, S), SW_NT, smem, stream>>>(A, packed, add, m, n, d, p, kp, partial, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (S > 1) {
+    const int total = m * p;
+    reduce_partials<<<(total + 255) / 256, 256, 0, stream>>>(partial, S, m, p, p, add, out);
+  }
   return cudaGetLastError();
 }
 
@@ -630,19 +741,35 @@ int rt_fused_sweep(const void* X, const void* C, const void* u, const void* v, c
   }
 }
 
+int rt_matmul_slots(int P, int kind, int d, int* smem_bytes, int* slots) {
+  switch (P) {
+    case 1: return (int)rt::matmul_slots_t<1>(kind, d, smem_bytes, slots);
+    case 4: return (int)rt::matmul_slots_t<4>(kind, d, smem_bytes, slots);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The slices B2 splits B's tiles into (a count, not an error code).
+int rt_matmul_slices(int m, int n, int slots) {
+  return rt::matmul_slices((m + rt::SW_BM - 1) / rt::SW_BM, (n + rt::SW_BN - 1) / rt::SW_BN, slots);
+}
+
 int rt_kernel_matmul(const void* A, const void* B, const void* V, const void* add, int m, int n,
                      int d, int p, int kind, float sigma, float coef, float ss, float c,
-                     int degree, int P, void* out, void* stream) {
+                     int degree, int P, int slots, void* packed, void* partial, void* out,
+                     void* stream) {
   const KParams kp = rt::kparams(kind, sigma, coef, ss, c, degree);
   const float* Af = static_cast<const float*>(A);
   const float* Bf = static_cast<const float*>(B);
   const float* Vf = static_cast<const float*>(V);
   const float* addf = static_cast<const float*>(add);
+  float* kf = static_cast<float*>(packed);
+  float* pf = static_cast<float*>(partial);
   float* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (P) {
-    case 1: return (int)rt::matmul_t<1>(Af, Bf, Vf, addf, m, n, d, p, kp, of, st);
-    case 4: return (int)rt::matmul_t<4>(Af, Bf, Vf, addf, m, n, d, p, kp, of, st);
+    case 1: return (int)rt::matmul_t<1>(Af, Bf, Vf, addf, m, n, d, p, kp, slots, kf, pf, of, st);
+    case 4: return (int)rt::matmul_t<4>(Af, Bf, Vf, addf, m, n, d, p, kp, slots, kf, pf, of, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

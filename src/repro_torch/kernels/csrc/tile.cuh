@@ -1,5 +1,5 @@
-// B0: one K(A, B) tile, shared by the sweep (B1), the kernel matmul (B2)
-// and the pairwise Gram (B3).
+// B0: one K(A, B) tile, the pairwise Gram's (B3), and the kernel map kmap
+// that B1, B2 and B3 share.
 //
 // Replaces repro/kernels/kernel_matvec.py::_tile and
 // repro/core/kernels.py::tile_transform (the Pallas tile body: one MXU
@@ -149,14 +149,6 @@ __device__ __forceinline__ void eval_tile(const float* __restrict__ A, int m,
       const int col = tx + TX * j;
       k[i][j] = c0 + col < n ? kmap(acc[i][j], s.a2[ty + TY * i], s.b2[col], kp) : 0.0f;
     }
-}
-
-// Sum a value over the 16 lanes that share a tile row (tx = 0..15 are 16
-// consecutive lanes of one warp). Every lane ends with the full sum.
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = TX / 2; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 }  // namespace rt

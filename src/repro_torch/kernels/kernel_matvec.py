@@ -24,9 +24,12 @@ the X block resident in shared memory and the centers streamed through a
 cp.async ring of 32-deep k-chunks (:func:`sweep_smem_bytes`). It evaluates
 every tile twice (forward pass, then transposed pass), so its tile counter
 reads ``2 * nbi * nbj`` in 128 x 128 tiles (:func:`sweep_tile_grid`) — the
-TPU kernel's one-evaluation-per-tile property does not hold here. B2 and B3
-keep B0's 64 x 64 tiles (``BM``, ``BN``). Only fp32 inputs are taken: bf16
-storage and Kahan compensation are ROADMAP.md A7.
+TPU kernel's one-evaluation-per-tile property does not hold here. The
+kernel matmul (B2) is the sweep's pass 1 alone on the same tile code, over
+an (A row blocks, slices of B) grid (:func:`matmul_slices`,
+:func:`matmul_smem_bytes`). B3 keeps B0's 64 x 64 tiles (``BM``, ``BN``).
+Only fp32 inputs are taken: bf16 storage and Kahan compensation are
+ROADMAP.md A7.
 """
 from __future__ import annotations
 
@@ -39,10 +42,10 @@ from repro_torch.core.kernels import KernelSpec, tile_eval
 
 Tensor = torch.Tensor
 
-BM = 64          # B0's Gram tile rows (A side), B2 and B3
+BM = 64          # B0's Gram tile rows (A side), B3
 BN = 64          # B0's Gram tile columns (B side)
 DK = 32          # B0's d-chunk staged through shared memory per round
-NT = 256         # threads of a Gram-tile block (B0 and B1)
+NT = 256         # threads of a Gram-tile block (B0, B1 and B2)
 MAX_P = 4        # widest right-hand side one kernel launch takes
 _P_PADS = (1, 4)   # compiled widths; p is padded up to the next one
 #: shared memory of one staged tile (csrc/tile.cuh ``TileSmem``)
@@ -55,6 +58,9 @@ SWEEP_BN = 128
 SWEEP_KC = 32
 SWEEP_XK = 128
 SWEEP_LDX = SWEEP_BM + 4
+#: most slices of B's tiles one kernel-matmul launch splits into
+#: (csrc/kernel_matvec.cu ``MM_MAX_SLICES``)
+MM_MAX_SLICES = 16
 #: the sweep keeps its w partial in shared memory while the block's total
 #: stays under this, so that at least two blocks fit on an SM
 W_SMEM_LIMIT = 100 * 1024
@@ -140,6 +146,52 @@ def sweep_grid_model(M: int, p: int, d: int) -> int:
     smem, _ = sweep_smem_bytes(M, p, d)
     per_sm = min(SM_THREADS // NT, SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
     return SMS * max(per_sm, 1)
+
+
+def matmul_smem_bytes(p: int, d: int) -> int:
+    """Dynamic shared memory of one kernel-matmul (B2) block. Mirrors
+    ``matmul_smem_floats`` of csrc/kernel_matvec.cu: the sweep's ring, extras
+    ring and A block (as :func:`sweep_smem_bytes`), t's cross-warp buffer
+    and the row norms; no w partial."""
+    P = _pad_p(p)
+    cr, xr = min(d, SWEEP_KC), min(d, SWEEP_XK)
+    return 4 * (2 * cr * SWEEP_BN + 2 * (1 + P) * SWEEP_BN + xr * SWEEP_LDX
+                + P * SWEEP_BM + SWEEP_BM)
+
+
+#: resident B2 blocks an SM by registers: its launch bounds ask for 2 blocks
+#: of 256 threads at P = 1 (<= 128 registers a thread) and 1 at P = 4
+_MATMUL_REG_BLOCKS = {1: 2, 4: 1}
+
+
+def matmul_grid_model(p: int, d: int) -> int:
+    """Resident kernel-matmul blocks on the modelled card: SMs x the blocks
+    one SM holds by threads, shared memory and the launch bounds' registers.
+    The launch asks the card (``rt_matmul_slots``); ``chip_smoke.py`` holds
+    the two equal."""
+    smem = matmul_smem_bytes(p, d)
+    per_sm = min(SM_THREADS // NT, SM_SMEM // (smem + BLOCK_SMEM_RESERVED),
+                 _MATMUL_REG_BLOCKS[_pad_p(p)])
+    return SMS * max(per_sm, 1)
+
+
+def matmul_slices(m: int, n: int, slots: int) -> int:
+    """Slices S of B's 128-row tiles that one kernel-matmul launch runs on
+    ``slots`` resident blocks: the S <= min(nbj, MM_MAX_SLICES) with the
+    fewest waves x (tiles a slice + 1), ties to the smaller S. Mirrors
+    ``matmul_slices`` of csrc/kernel_matvec.cu, which decides it."""
+    nbi, nbj = -(-m // SWEEP_BM), -(-n // SWEEP_BN)
+    costs = [(-(-nbi * S // slots) * (-(-nbj // S) + 1), S)
+             for S in range(1, min(nbj, MM_MAX_SLICES) + 1)]
+    return min(costs)[1]
+
+
+def matmul_slice_bounds(n: int, slices: int) -> list[tuple[int, int]]:
+    """B rows [b0, b1) of each slice: slice s takes tiles s*nbj//S to
+    (s+1)*nbj//S - 1, as the kernel's block (i, s) does."""
+    nbj = -(-n // SWEEP_BN)
+    return [(s * nbj // slices * SWEEP_BN, min((s + 1) * nbj // slices * SWEEP_BN, n))
+            for s in range(slices)]
 
 
 def _kparams(spec: KernelSpec) -> tuple:
@@ -330,7 +382,34 @@ def kernel_matmul_plain(A: Tensor, B: Tensor, V: Tensor, add: Tensor | None = No
     return out if add is None else out + add
 
 
-def _kernel_matmul_cuda(A, B, V, add, *, spec):
+def kernel_matmul_sliced_plain(A: Tensor, B: Tensor, V: Tensor, add: Tensor | None = None, *,
+                               spec: KernelSpec, slices: int) -> Tensor:
+    """The kernel's split schedule in plain PyTorch, for the tests: B's rows
+    in ``slices`` contiguous slices of 128-row tiles
+    (:func:`matmul_slice_bounds`), each slice's K(A, B_s) V_s summed in
+    slice order, then ``add``."""
+    out = None
+    for b0, b1 in matmul_slice_bounds(B.shape[0], slices):
+        part = kernel_matmul_plain(A, B[b0:b1], V[b0:b1], spec=spec)
+        out = part if out is None else out + part
+    return out if add is None else out + add
+
+
+@functools.cache
+def _matmul_slots(P: int, kind: int, d: int, device_index: int) -> tuple[int, int]:
+    """(shared memory bytes, resident blocks on the card) of B2's
+    instantiation for (P, kernel kind code) at depth d (the caller holds
+    the device context of ``device_index``)."""
+    smem, slots = ctypes.c_int(0), ctypes.c_int(0)
+    _check(_lib().rt_matmul_slots(P, kind, d, ctypes.byref(smem), ctypes.byref(slots)),
+           "kernel matmul slots query")
+    return smem.value, slots.value
+
+
+def _kernel_matmul_cuda(A, B, V, add, *, spec, slots=None):
+    """One B2 launch. ``slots`` stands in for the card's resident blocks in
+    the split rule (the checks force S = 1 with 1, and the most slices with
+    a large count)."""
     what = "kernel_matmul"
     m, d = A.shape
     n = B.shape[0]
@@ -343,10 +422,20 @@ def _kernel_matmul_cuda(A, B, V, add, *, spec):
     _check_operands(what, A.device, A=A, B=B, V=V, add=add)
     P = _pad_p(p)
     out = torch.empty(m, p, dtype=torch.float32, device=A.device)
+    # the prologue's B: per 128-row tile, B k-major, ||b||^2, V
+    packed = torch.empty(-(-n // SWEEP_BN) * (d + 1 + P) * SWEEP_BN, dtype=torch.float32,
+                         device=A.device)
     with torch.cuda.device(A.device):
-        code = _lib().rt_kernel_matmul(
-            _ptr(A), _ptr(B), _ptr(V), _ptr(add), m, n, d, p, *_kparams(spec), P,
-            _ptr(out), _stream(A.device))
+        lib = _lib()
+        kp = _kparams(spec)
+        if slots is None:
+            slots = _matmul_slots(P, kp[0], d, A.device.index)[1]
+        S = lib.rt_matmul_slices(m, n, slots)
+        partial = (torch.empty(S * m * p, dtype=torch.float32, device=A.device)
+                   if S > 1 else None)
+        code = lib.rt_kernel_matmul(
+            _ptr(A), _ptr(B), _ptr(V), _ptr(add), m, n, d, p, *kp, P, slots,
+            _ptr(packed), _ptr(partial), _ptr(out), _stream(A.device))
         _check(code, what)
         kernel_matmul.launches += 1
     return out
@@ -418,12 +507,11 @@ pairwise_kernel.launches = 0
 # ---------------------------------------------------------------------------
 # B4 j-sharded sweep: w = K(X, C)^T (K(X, C) u + v) as B2 launches
 # ---------------------------------------------------------------------------
-#: rows of X per B2 launch in the sharded sweep's transposed pass. B2 sums
-#: its B rows in one fp32 chain per lane, which at n = 4.6x10^5 rounds more
-#: than B1: on an H100 (tools/sweep_rounding.py, three draws) one chain
-#: stood 1.51e-6, 6.92e-7 and 6.53e-7 from a float64 sweep, normwise,
-#: 65536-row chunks chained through ``add=`` 1.38e-6, 3.21e-7 and 2.03e-7
-#: (B1 1.42e-6, 4.52e-7 and 3.86e-7).
+#: rows of X per B2 launch in the sharded sweep's transposed pass. Chosen
+#: when B2 summed its B rows in one fp32 chain per lane, which rounded more
+#: than B1 at n = 4.6x10^5 (tools/sweep_rounding.py); B2 now sums as B1's
+#: pass 1 and one chain rounds alike (PERF.md), but the chunks stay: they
+#: fix the launch counts and the rounding that the checks hold.
 SHARD_ROW_CHUNK = 65_536
 
 

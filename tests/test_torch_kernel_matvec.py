@@ -199,6 +199,64 @@ def test_sweep_tiling_and_shared_memory_plan():
     assert (kind, sigma, coef) == (0, 4.0, -0.5 / 16.0)
 
 
+# (m, n, d, S) of the kernel matmul (B2) at p = 1 on the modelled card's 264
+# resident blocks: SUSY's predict fills the card without a split, the
+# MillionSongs predict's second wave is short, and B4's transposed pass
+# (C's 17,280-row shard against a 65,536-row chunk of X) has 135 row blocks
+MATMUL_PLANS = [(500_000, 10_000, 18, 1), (51_630, 50_000, 90, 7), (17_280, 65_536, 90, 13)]
+
+
+@pytest.mark.parametrize("m,n,d,S", MATMUL_PLANS)
+def test_matmul_split_rule_and_shared_memory_plan(m, n, d, S):
+    """B2's shared memory, resident blocks and slices, as the CUDA source
+    plans them (``matmul_smem_floats``, the launch bounds, ``matmul_slices``)."""
+    cr, xr = min(d, 32), min(d, 128)
+    # ring 2 x cr k-rows, extras 2 x (1 + P), A block xr x 132, t's
+    # cross-warp buffer P, row norms (x 128 floats each but A's padded rows)
+    assert km.matmul_smem_bytes(1, d) == 4 * (2 * cr * 128 + 2 * 2 * 128 + xr * 132 + 128 + 128)
+    assert km.matmul_smem_bytes(3, d) == 4 * (2 * cr * 128 + 2 * 5 * 128 + xr * 132 + 4 * 128
+                                              + 128)
+    slots = km.matmul_grid_model(1, d)
+    assert slots == 264 and km.matmul_grid_model(4, d) == 132
+    assert km.matmul_slices(m, n, slots) == S
+    # the rule's cost, waves x (tiles a slice + 1), is least at S
+    nbi, nbj = -(-m // 128), -(-n // 128)
+    cost = lambda s: -(-nbi * s // slots) * (-(-nbj // s) + 1)
+    assert all(cost(S) < cost(s) for s in range(1, S)) and all(
+        cost(S) <= cost(s) for s in range(S, min(nbj, km.MM_MAX_SLICES) + 1))
+    bounds = km.matmul_slice_bounds(n, S)
+    assert bounds[0][0] == 0 and bounds[-1][1] == n and len(bounds) == S
+    assert all(b1 == c0 and b1 % 128 == 0 for (_, b1), (c0, _) in zip(bounds, bounds[1:]))
+    # one slots count forces the whole B axis into one slice, a large one
+    # the most slices B's tiles allow
+    assert km.matmul_slices(m, n, 1) == 1
+    assert km.matmul_slices(m, n, 1 << 30) == min(nbj, km.MM_MAX_SLICES)
+
+
+@pytest.mark.parametrize("m,n,d", [(150, 300, 6), (37, 513, 13), (129, 129, 129)])
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("with_add", [False, True])
+def test_matmul_sliced_schedule_matches_pallas(m, n, d, p, with_add):
+    """B2's split schedule (slice partials summed in slice order, then
+    ``add``) against the reference's kernel matmul in interpret mode, at
+    ragged shapes and every slice count the B rows allow; TOL."""
+    A, B, V, add = _data(m, n, d, p, seed=m + n + d + p)
+    add = add if with_add else None
+    jspec, tspec = _specs("gaussian", dict(sigma=float(np.sqrt(d))))
+    ref = kernel_matmul_pallas(J(A), J(B), J(V), spec=jspec,
+                               add=None if add is None else J(add), interpret=True)
+    nbj = -(-n // 128)
+    for slices in sorted({1, 2, nbj, km.matmul_slices(m, n, 264)}):
+        if slices > nbj:
+            continue
+        got = km.kernel_matmul_sliced_plain(T(A), T(B), T(V), None if add is None else T(add),
+                                            spec=tspec, slices=slices)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    # one slice is the plain twin itself
+    assert torch.equal(km.kernel_matmul_sliced_plain(T(A), T(B), T(V), spec=tspec, slices=1),
+                       km.kernel_matmul_plain(T(A), T(B), T(V), spec=tspec))
+
+
 # ---------------------------------------------------------------------------
 # Right-hand sides wider than the kernels' 4 columns (the reference pads p to
 # 128 lanes and takes any width): the wrappers split them into column groups

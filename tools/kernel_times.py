@@ -1,0 +1,85 @@
+"""Time the sweep kernels at the main path's shapes on one GPU, on random data.
+
+B1 (``fused_sweep``) at the SUSY and MillionSongs sweep shapes, B2
+(``kernel_matmul``) at SUSY's predict and at one launch of B4's transposed
+pass, and B4 (``sharded_sweep``) at the MillionSongs shape: medians of CUDA
+events, each line with the card's name and power limit. Rows are
+``torch.randn`` from ``--seed`` and the centers a random subset of them;
+gaussian sigma as the paper's tasks (4 for d = 18, 6 for d = 90). Meant for
+comparing two checkouts in turns on one card (run it from each); needs a
+CUDA card. From the repository root:
+
+    python3 tools/kernel_times.py [--only b1,b2,b4] [--reps 5] [--seed 0]
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="b1,b2,b4", help="comma-separated subset of b1,b2,b4")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: needs a CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch.core import make_kernel
+    from repro_torch.kernels import kernel_matvec as km
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def data(n, M, d):
+        X = torch.randn(n, d, generator=g, device="cuda")
+        return X, X[torch.randperm(n, generator=g, device="cuda")[:M]].contiguous()
+
+    def time_ms(fn):
+        fn()
+        out = []
+        for _ in range(args.reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return statistics.median(out)
+
+    def report(name, fn):
+        print(f"{name}: {time_ms(fn):.4f} ms ({card})", flush=True)
+
+    only = set(args.only.split(","))
+    for n, M, d, sigma in ((4_000_000, 10_000, 18, 4.0), (463_715, 50_000, 90, 6.0)):
+        X, C = data(n, M, d)
+        spec = make_kernel("gaussian", sigma=sigma).spec
+        u = torch.randn(M, generator=g, device="cuda")
+        if "b1" in only:
+            report(f"B1 n={n} M={M} d={d}", lambda: km.fused_sweep(X, C, u, spec=spec))
+        if "b2" in only and d == 18:
+            Xt = torch.randn(500_000, d, generator=g, device="cuda")
+            report(f"B2 m={Xt.shape[0]} n={M} d={d}", lambda: km.kernel_matmul(Xt, C, u, spec=spec))
+        if "b2" in only and d == 90:
+            Cj, Xr = C[:17_280], X[:km.SHARD_ROW_CHUNK]
+            t = torch.randn(Xr.shape[0], 1, generator=g, device="cuda")
+            w = torch.randn(Cj.shape[0], 1, generator=g, device="cuda")
+            report(f"B2 m={Cj.shape[0]} n={Xr.shape[0]} d={d}",
+                   lambda: km.kernel_matmul(Cj, Xr, t, w, spec=spec))
+        if "b4" in only and d == 90:
+            report(f"B4 n={n} M={M} d={d} shard_m=17280",
+                   lambda: km.sharded_sweep(X, C, u, spec=spec, shard_m=17_280))
+        del X, C
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
