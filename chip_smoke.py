@@ -22,8 +22,16 @@ result line:
                likewise around its tile (m, n and d as B1's; p = 1 and 4,
                with and without ``add=``, the five kinds, on the unsplit
                and the most-split grid), its shared memory, resident blocks
-               and split of B's tiles against their Python mirror; B4 also
-               against B1, with ragged shards.
+               and split of B's tiles against their Python mirror; B3
+               likewise around its tile (m, n and d as B1's, the five
+               kinds; n % 4 = 0 takes its float4 stores, else the scalar
+               ones), its first columns bit-equal to B2's K(A, B) V with V
+               one-hot (unsplit and most-split), K(C, C) of one tensor (the
+               symmetric route) at M in 1, 127, 128, 129, 300, 513
+               bit-equal to the full route on C.clone() and to its
+               transpose, its shared memory and resident blocks against
+               the mirror, and every block's range of tiles against
+               ``pairwise_range``; B4 also against B1, with ragged shards.
 4. blocked  — the blocked Cholesky's tile kernels B5-B7 against their
                twins at the ragged test shapes, a 1280 tile and the last
                80-wide panel's update (k = 1280); B5 at widths around its
@@ -61,16 +69,18 @@ result line:
                the predict-shape kernel matmul against float32 and float64
                twins; the MillionSongs fit's blocked T and A against
                in-core float32 (cuSOLVER) and float64 factors of the same
-               matrices; B1 at the SUSY shape and B2 at the predict shape
-               and at one launch of B4's transposed pass, each twice,
-               bit-equal; B6 and B7 at
+               matrices; B1 at the SUSY shape, B2 at the predict shape
+               and at one launch of B4's transposed pass, and B3 at both
+               fits' K_MM (symmetric route) and at a 65,536-row K_nM-cache
+               block (full route), each twice, bit-equal; B6 and B7 at
                the first panel's shapes against their twins (B6 twice,
                bit-equal); each kernel at its path's shapes (CUDA events)
                beside its plain twin, its bound and its library call (B2
-               also at B4's transposed shape); B1's (at both fits' shapes),
-               B2's (at both of its), B5's and B6's device operations per
-               call by name (``torch.profiler``); then one ``kernels`` JSON
-               line.
+               also at B4's transposed shape, B3 at its three); B1's (at
+               both fits' shapes), B2's (at both of its), B3's (at its
+               three), B5's and B6's device operations per call by name
+               (``torch.profiler``); then one ``kernels`` JSON line (B3's
+               entry: SUSY's K_MM).
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -113,6 +123,12 @@ EDGE_D = (1, 18, 90, 129)
 #: (m, n, d) of B2 on the path: SUSY's predict, the MillionSongs predict and
 #: B4's transposed pass (C's 17,280-row shard against a 65,536-row X chunk)
 MATMUL_PATH_SHAPES = [(500_000, 10_000, 18), (51_630, 50_000, 90), (17_280, 65_536, 90)]
+#: (m, n, d, symmetric) of B3 on the path: SUSY's and MillionSongs' K_MM,
+#: and one K_nM-cache row block (65,536 rows against SUSY's centers)
+PAIRWISE_PATH_SHAPES = [(10_000, 10_000, 18, True), (50_000, 50_000, 90, True),
+                        (65_536, 10_000, 18, False)]
+#: B3's symmetric route also at several row blocks, ragged
+PAIRWISE_SYM_M = (300, 513)
 #: (n, M, d, p) of sweeps whose w partials overflow shared memory
 SWEEP_GLOBAL = [(40_000, 5_000, 18, 3), (40_000, 20_500, 18, 1)]
 #: (n, M, d, shard_m) of the sharded sweep B4: ragged shards; the last
@@ -367,6 +383,10 @@ def phase_kernels(torch):
     cases += n_edge
     worst = max(worst, edge)
     check_matmul_plan(torch, km)
+    n_edge, edge = check_pairwise_edges(torch, km, randn)
+    cases += n_edge
+    worst = max(worst, edge)
+    check_pairwise_plan(torch, km)
     say(f"[kernels] {cases} checks pass; worst max|diff|/(1e-4 + 1e-4 max|ref|) = {worst:.4f} (bound 1)")
 
 
@@ -433,6 +453,105 @@ def check_matmul_plan(torch, km) -> None:
                 check(lib.rt_matmul_slices(m, n, slots) == km.matmul_slices(m, n, slots),
                       f"B2's split at m={m} n={n} slots={slots} is not the mirror's")
     say(f"[kernels] B2 split rule: C and mirror agree on {len(grid) * (len(grid) + 1) * 2} shapes")
+
+
+def check_pairwise_edges(torch, km, randn) -> tuple[int, float]:
+    """B3 around its 128 x 128 tile for the five kinds: m, n in EDGE_NM, d
+    in EDGE_D (n % 4 = 0 takes the float4 stores, else the scalar ones)
+    against its twin; its first min(n, 4) columns bit-equal to B2's
+    K(A, B) V with V one-hot (p = 4; B2 adds exact zeros), on B2's unsplit
+    and most-split grids. The symmetric route, K(C, C) of one tensor, at M
+    in EDGE_NM and PAIRWISE_SYM_M: against its twin, bit-equal to the full
+    route on C.clone() and to its own transpose. Inputs scaled by
+    1/sqrt(d), as B2's edges. Returns (checks, worst ratio)."""
+    from repro_torch.core.kernels import make_kernel
+    cases, worst, bits = 0, 0.0, 0
+    for kind, params in KINDS:
+        spec = make_kernel(kind, **params).spec
+        for d in EDGE_D:
+            for m in EDGE_NM:
+                for n in EDGE_NM:
+                    A, B = randn(m, d) / d ** 0.5, randn(n, d) / d ** 0.5
+                    K = km.pairwise_kernel(A, B, spec=spec)
+                    abs_err, ratio = close_err(K, km.pairwise_kernel_plain(A, B, spec=spec))
+                    cases += 1
+                    worst = max(worst, ratio)
+                    check(ratio <= 1.0, f"B3 {kind} m,n,d={m},{n},{d}: max abs err {abs_err:.3e} "
+                          f"exceeds atol 1e-4 + rtol 1e-4 (ratio {ratio:.3f})")
+                    V = torch.eye(n, 4, device=A.device)
+                    w = min(n, 4)
+                    for slots in (1, 1 << 30):
+                        out = km._kernel_matmul_cuda(A, B, V, None, spec=spec, slots=slots)
+                        check(torch.equal(out[:, :w], K[:, :w]),
+                              f"B3 {kind} m,n,d={m},{n},{d}: first columns differ from B2's "
+                              f"one-hot product (slots={slots})")
+                        bits += 1
+            for M in EDGE_NM + PAIRWISE_SYM_M:
+                C = randn(M, d) / d ** 0.5
+                K = km.pairwise_kernel(C, C, spec=spec)
+                abs_err, ratio = gram_err(km, K, C, spec)
+                cases += 1
+                worst = max(worst, ratio)
+                check(ratio <= 1.0, f"B3 {kind} M={M} d={d} (symmetric): max abs err "
+                      f"{abs_err:.3e} exceeds atol 1e-4 + rtol 1e-4 (ratio {ratio:.3f})")
+                check(torch.equal(K, km.pairwise_kernel(C, C.clone(), spec=spec)),
+                      f"B3 {kind} M={M} d={d}: the symmetric route differs from the full route")
+                check(torch.equal(K, K.mT), f"B3 {kind} M={M} d={d}: K(C, C) is not symmetric")
+                bits += 2
+    torch.cuda.synchronize()
+    say(f"[kernels] B3 tile edges: m, n in {EDGE_NM}, d in {EDGE_D}, five kinds: {cases} checks "
+        f"against the twin pass (worst ratio {worst:.4f}); {bits} bit-equalities hold (B2's "
+        f"one-hot columns, unsplit and split; K(C, C) at M in {EDGE_NM + PAIRWISE_SYM_M} equal "
+        "to the full route and to its transpose)")
+    return cases, worst
+
+
+def gram_err(km, K, C, spec) -> tuple[float, float]:
+    """``close_err`` of K(C, C): off the diagonal against the float32 twin,
+    on it against a float64 twin. The kernel's diagonal is exact: an entry's
+    dot product and both norms are one fmaf sum, so its distance is exactly
+    0, while the float32 twin's X X^T and row norms sum in other orders and
+    leave up to ~4 eps ||c||^2, which the laplacian's sqrt at distance 0
+    turns into ~1e-3."""
+    ref = km.pairwise_kernel_plain(C, C, spec=spec).double()
+    ref.diagonal().copy_(km.pairwise_kernel_plain(C.double(), C.double(), spec=spec).diagonal())
+    return close_err(K, ref)
+
+
+def check_pairwise_plan(torch, km) -> None:
+    """B3's plan on the card against its Python mirror: shared memory and
+    resident blocks (the occupancy query against the model, both store
+    instantiations) at each path's depth, and every block's range of tiles
+    (``rt_pairwise_range``) against ``pairwise_range`` on the modelled and
+    the queried grids."""
+    import ctypes
+    dev = torch.cuda.current_device()
+    lib = km._lib()
+    queried = {}
+    for d in (18, 90):
+        for vec in (True, False):
+            smem, slots = km._pairwise_slots(km.KIND_CODES["gaussian"], d, vec, dev)
+            model = km.pairwise_grid_model(d)
+            queried[d] = slots
+            say(f"[kernels] B3 plan d={d} vec={vec}: shared memory {smem} B (mirror "
+                f"{km.pairwise_smem_bytes(d)}), resident blocks {slots} (model {model})")
+            check(smem == km.pairwise_smem_bytes(d) and slots == model,
+                  f"B3's plan at d={d} vec={vec} is not its mirror's")
+    got = (ctypes.c_longlong * 4)()
+    shapes = 0
+    for m, n, d, sym in PAIRWISE_PATH_SHAPES + [(1, 1, 1, True), (300, 300, 13, True),
+                                                 (513, 129, 33, False), (129, 129, 1, True)]:
+        for G in sorted({km.pairwise_grid_model(d), queried.get(d, km.pairwise_grid_model(d)),
+                         1, 7}):
+            G = min(G, km.pairwise_tiles(m, n, sym))
+            for b in range(G):
+                lib.rt_pairwise_range(m, n, int(sym), G, b, got)
+                check(tuple(got) == km.pairwise_range(m, n, sym, G, b),
+                      f"B3's range of block {b} of {G} at m={m} n={n} sym={sym}: C {tuple(got)}, "
+                      f"mirror {km.pairwise_range(m, n, sym, G, b)}")
+            shapes += 1
+    say(f"[kernels] B3 schedule: C and mirror agree on every block's range at {shapes} "
+        "(shape, grid) pairs")
 
 
 def check_sharded(torch, km, spec, X, C, u, v, shard: int, res: dict, tag: str) -> None:
@@ -1033,16 +1152,10 @@ def phase_times(torch, main, msd) -> list[dict]:
     rows.append(dict(name="kernel_matmul", ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                      max_abs_err=abs_err, shape=f"m={m} n={M} d={d} p=1"))
 
-    # B3 at K_MM's shape
-    K = km.pairwise_kernel(Cc, Cc, spec=spec)
-    abs_err, ratio = close_err(K, km.pairwise_kernel_plain(Cc, Cc, spec=spec))
-    check(ratio <= 1.0, f"K_MM disagrees with its twin (ratio {ratio})")
-    del K
-    ms = time_cuda(torch, lambda: km.pairwise_kernel(Cc, Cc, spec=spec), 10)
-    plain = time_cuda(torch, lambda: km.pairwise_kernel_plain(Cc, Cc, spec=spec), 3)
-    b, by = bound(M * M * (2 * d + 10), 4 * (2 * M * d + M * M))
-    rows.append(dict(name="pairwise_kernel", ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                     max_abs_err=abs_err, shape=f"m={M} n={M} d={d}"))
+    # B3 at a K_nM-cache row block (full route), then at K_MM's shape
+    # (symmetric route; the kernels line's entry)
+    pairwise_times(torch, km, X[:65_536], Cc, spec, "a K_nM-cache row block")
+    rows.append(pairwise_times(torch, km, Cc, Cc, spec, "SUSY's K_MM", plain=True))
 
     rows += msd_times(torch, msd)
     counts = {**main["counts"], **{k: msd["counts"][k] for k in
@@ -1062,6 +1175,43 @@ def phase_times(torch, main, msd) -> list[dict]:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": lib,
         })
     return kernels
+
+
+def pairwise_times(torch, km, A, B, spec, tag: str, plain: bool = False) -> dict:
+    """B3 at one of its path's shapes: its device operations (profiled
+    first, while no result is held), against its twin (in row chunks, to
+    bound the twin's device memory), two runs bit-equal, and its time (CUDA
+    events) beside its bound: the store of
+    4mn bytes (and the inputs) against m n (2d + 10) flops of the full grid,
+    or nbi (nbi + 1) / 2 128 x 128 tiles of (2d + 10) on the symmetric
+    route. ``plain`` also times the twin on the whole shape."""
+    (m, d), n = A.shape, B.shape[0]
+    sym = km.pairwise_symmetric(A, B)
+    route = "symmetric" if sym else "full"
+    gram = lambda: km.pairwise_kernel(A, B, spec=spec)
+    breakdown(torch, f"B3 m={m} n={n} d={d}", gram)
+    K = gram()
+    diff = top = 0.0
+    for r0 in range(0, m, 4096):
+        ref = km.pairwise_kernel_plain(A[r0:r0 + 4096], B, spec=spec).double()
+        diff = max(diff, float((K[r0:r0 + 4096].double() - ref).abs().max()))
+        top = max(top, float(ref.abs().max()))
+        del ref
+    ratio = diff / (TOL["atol"] + TOL["rtol"] * top)
+    again = torch.equal(K, gram())
+    del K
+    say(f"[times] B3 at {tag} m={m} n={n} d={d} ({route} route): vs twin {diff:.3e} (ratio "
+        f"{ratio:.4f}); two runs bit-equal: {again}")
+    check(ratio <= 1.0 and again, f"B3 at {tag} is off its twin or not deterministic")
+    ms = time_cuda(torch, gram, 10)
+    entries = km.pairwise_tiles(m, n, True) * km.SWEEP_BM * km.SWEEP_BN if sym else m * n
+    b, by = bound(entries * (2 * d + 10), 4 * (m * n + (m if sym else m + n) * d))
+    plain_ms = time_cuda(torch, lambda: km.pairwise_kernel_plain(A, B, spec=spec), 3) if plain \
+        else None
+    say(f"[times] B3 at {tag} m={m} n={n} d={d}: kernel {ms:.4f} ms, bound {b:.4f} ms ({by}; "
+        f"{entries} entries evaluated)" + ("" if plain_ms is None else f", plain {plain_ms:.4f} ms"))
+    return dict(name="pairwise_kernel", ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                max_abs_err=diff, shape=f"m={m} n={n} d={d} {route}")
 
 
 def msd_times(torch, msd) -> list[dict]:
@@ -1097,6 +1247,7 @@ def msd_times(torch, msd) -> list[dict]:
     rows.append(dict(name="sharded_sweep", ms=ms4, plain_ms=plain4, bound_ms=b, bound_by=by,
                      max_abs_err=e4, shape=f"n={n} M={M} d={d} p=1 shard_m={shard}"))
     matmul_transposed(torch, km, X, C, spec, shard)
+    pairwise_times(torch, km, C, C, spec, "MillionSongs' K_MM")
 
     factor_witness(torch, msd)
 
@@ -1180,15 +1331,21 @@ def matmul_transposed(torch, km, X, C, spec, shard: int) -> None:
 def breakdown(torch, tag: str, fn, each: bool = False) -> None:
     """One call's device operations, by name, with their summed device time
     (``torch.profiler``): a blocked schedule's launches; ``each`` also lists
-    every launch's time in launch order."""
+    every launch's time in launch order. The profiler has returned no
+    device operation for a call (B3 at MillionSongs' K_MM) and dropped a
+    call's first one at times, so an empty profile is taken again, up to
+    three times in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     ops: dict[str, list] = {}
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     for e in sorted(events, key=lambda e: e.time_range.start):
         name = e.name.split("(")[0].removeprefix("void ")
         ops.setdefault(name, []).append(e.time_range.elapsed_us())

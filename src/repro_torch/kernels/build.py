@@ -37,10 +37,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 #: argtypes of every C entry point; each returns a cudaError_t as int, but
-#: ``rt_tile_smem_bytes`` (bytes) and ``rt_matmul_slices`` (a count)
+#: ``rt_matmul_slices`` (a count) and ``rt_pairwise_range`` (0)
 _SIGNATURES = {
     # kernel_matvec.cu: B1-B3
-    "rt_tile_smem_bytes": [],
     "rt_sweep_grid": [_I, _I, _I, ctypes.POINTER(_I)],
     "rt_fused_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _F, _F, _F, _F, _I,
@@ -49,7 +48,9 @@ _SIGNATURES = {
     "rt_matmul_slices": [_I, _I, _I],
     "rt_kernel_matmul": [_P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P],
-    "rt_pairwise": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P],
+    "rt_pairwise_slots": [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "rt_pairwise_range": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
+    "rt_pairwise": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P],
     # blocked_cholesky.cu: B5-B7
     "rb_potrf": [_P, _P, _I, _P],
     "rb_trsm": [_P, _P, _P, _I, _I, _P],

@@ -39,7 +39,7 @@
 //     deterministic, with no float atomics. The one atomic is the integer
 //     tile-evaluation counter, which reports 2 * nbi * nbj in 128 x 128
 //     tiles. The tile code (TileWalk: the staging, the ring, the evaluation
-//     and pass 1) is B1's and B2's; B3 keeps B0 (tile.cuh).
+//     and pass 1) is B1's, B2's and B3's; the kernel map is tile.cuh's.
 //
 // B2  kernel_matmul_kernel  out = K(A,B) V + add
 //     Replaces repro/kernels/kernel_matvec.py::kernel_matmul_pallas /
@@ -58,9 +58,28 @@
 //
 // B3  pairwise_kernel       K(A,B) materialized
 //     Replaces repro/kernels/kernel_matvec.py::pairwise_kernel_pallas /
-//     _pairwise_kernel. Bound: the m*n*4-byte store against 3.35 TB/s.
-//     Design: a 2-D grid of 64 x 64 output tiles, each evaluated by B0 and
-//     stored with 16 consecutive lanes on 16 consecutive floats.
+//     _pairwise_kernel. Bound on an H100: the larger of the m*n*4-byte store
+//     against 3.35 TB/s and the m*n*(2d + 10) flops of the entries it
+//     evaluates against 67 TFLOP/s: the store at d = 18 (SUSY's K_MM),
+//     the flops at d = 90 (MillionSongs') unless each entry pair of a
+//     symmetric K is evaluated once.
+//     Design: B2's evaluation alone, on the same tile code. pack_centers
+//     packs B k-major with ||b||^2 (at P = 1, u = 0) once per call; a
+//     persistent grid of G blocks (occupancy x 132 SMs) splits the tiles, in
+//     row-major order, into G contiguous ranges that differ by at most one
+//     tile (pairwise_range). A block stages A's row block when its range
+//     enters a row and streams B's packed tiles through the ring. Each
+//     thread stores its 8 x 8 micro-tile straight from registers with
+//     streaming float4 stores (a row's 8 lanes cover 128 contiguous bytes;
+//     a scalar instantiation takes n % 4 != 0). K(C, C), A and B the same
+//     storage, takes the symmetric route: only the tiles bj >= bi are
+//     evaluated, and an off-diagonal tile is stored at (bi, bj) and,
+//     transposed from the same registers, at (bj, bi) (4 lanes cover 64
+//     contiguous bytes of an output row). That is exact: fmaf(a, b, acc) ==
+//     fmaf(b, a, acc), both norms are the same k-ordered fmaf sums, and
+//     sqdist adds them with a commutative __fadd_rn, so the full route's
+//     K(C, C) is symmetric bit for bit. Every entry has one writer: no
+//     atomics.
 //
 // Plain C interface, loaded with ctypes by repro_torch/kernels/build.py:
 // every entry returns cudaGetLastError() after its launches.
@@ -101,8 +120,8 @@ __host__ __device__ constexpr size_t packed_tile_floats(int d) {
 }
 
 // The prologue: one thread per center. Column m % 128 of tile m / 128 gets
-// C[m] k-major, its squared norm (fmaf in k order, as B0 sums it) and u[m],
-// all zero past M and p.
+// C[m] k-major, its squared norm (fmaf in k order, as TileWalk::stage_rows
+// sums a row's) and u[m], all zero past M and p.
 template <int P>
 __global__ void __launch_bounds__(SW_BN)
     pack_centers(const float* __restrict__ C, const float* __restrict__ u, int M, int d, int p,
@@ -132,8 +151,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The kernel map of a whole micro-tile, in registers: B0's kmap per entry
-// (the same rounding as B2 and B3), its kind fixed at compile time. A
+// The kernel map of a whole micro-tile, in registers: tile.cuh's kmap per
+// entry, its kind fixed at compile time. A
 // switch on the kind inside the kernel costs spills: the other kinds'
 // division and sqrt slow paths are calls that save the live tile.
 template <int KIND>
@@ -165,21 +184,24 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ X, int n, int 
   }
 }
 
-// A block's stream of packed tiles: each pass walks tiles j0..j1-1, a
-// tile's k-chunks consecutive. The n-th chunk fetched lands in ring slot
-// n & 1; a tile's first chunk also brings its extras into extras slot
-// (tile sequence) & 1.
+// A block's stream of packed tiles, a tile's k-chunks consecutive: each row
+// of the stream walks tiles first..j1-1, then the next row begins at
+// first + step (B1, B2: step 0, every row walks j0..j1-1; B3's upper
+// triangle: step 1, row i walks i..nbj-1). The n-th chunk fetched lands in
+// ring slot n & 1; a tile's first chunk also brings its extras into extras
+// slot (tile sequence) & 1.
 struct ChunkCursor {
   int chunk;   // k-chunk of the next chunk to fetch
   int tile;    // its packed tile
   int tseq;    // tiles begun before it, over the whole stream
   int slot;    // its ring slot
+  int first;   // the tile this row of the stream wrapped to
+  int step;    // how far `first` moves at each wrap
 };
 
 template <int P>
 __device__ __forceinline__ void fetch_chunk(const float* __restrict__ packed, int d, int nkc,
-                                            int j0, int j1, ChunkCursor& cur, float* cs,
-                                            float* ex) {
+                                            int j1, ChunkCursor& cur, float* cs, float* ex) {
   const int k0 = cur.chunk * SW_KC;
   const int rows = min(SW_KC, d - k0);
   const int cr = min(d, SW_KC);
@@ -198,16 +220,21 @@ __device__ __forceinline__ void fetch_chunk(const float* __restrict__ packed, in
   if (++cur.chunk == nkc) {
     cur.chunk = 0;
     ++cur.tseq;
-    if (++cur.tile == j1) cur.tile = j0;
+    if (++cur.tile == j1) {
+      cur.first += cur.step;
+      cur.tile = cur.first;
+    }
   }
 }
 
-// The tile code B1 and B2 share: one block's 128-row blocks of X (B2: A)
-// against its stream of packed tiles j0..j1-1 (B1: every center tile, twice
-// per row block; B2: one slice of B's tiles, once). The shared-memory
-// regions are the caller's: cs [2][min(d, 32)][128] (the ring), ex
-// [2][1 + P][128] (the extras ring), xs [min(d, 128)][SW_LDX] (the X block,
-// k-major) and a2s [128] (its row norms).
+// The tile code B1, B2 and B3 share: one block's 128-row blocks of X (B2,
+// B3: A) against its stream of packed tiles j0..j1-1 (B1: every center
+// tile, twice per row block; B2: one slice of B's tiles, once; B3: its
+// range of output tiles, the stream beginning at tile `start` and wrapping
+// as ChunkCursor says). The shared-memory regions are the caller's: cs
+// [2][min(d, 32)][128] (the ring), ex [2][1 + P][128] (the extras ring), xs
+// [min(d, 128)][SW_LDX] (the X block, k-major) and a2s [128] (its row
+// norms).
 template <int P, int KIND>
 struct TileWalk {
   const float* __restrict__ X;
@@ -225,14 +252,16 @@ struct TileWalk {
 
   __device__ __forceinline__ TileWalk(const float* X_, const float* packed_, int n_, int d_,
                                       int j0_, int j1_, long total_, KParams kp_, float* cs_,
-                                      float* ex_, float* xs_, float* a2s_)
+                                      float* ex_, float* xs_, float* a2s_, int start, int first,
+                                      int step)
       : X(X_), packed(packed_), n(n_), d(d_), nkc((d_ + SW_KC - 1) / SW_KC), j0(j0_), j1(j1_),
-        kp(kp_), cs(cs_), ex(ex_), xs(xs_), a2s(a2s_), total(total_), cur{0, j0_, 0, 0} {
+        kp(kp_), cs(cs_), ex(ex_), xs(xs_), a2s(a2s_), total(total_),
+        cur{0, start, 0, 0, first, step} {
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     ty = (warp / 2) * 4 + lane / 8;
     tx = (warp % 2) * 8 + lane % 8;
-    fetch_chunk<P>(packed, d, nkc, j0, j1, cur, cs, ex);   // the stream's first chunk
+    fetch_chunk<P>(packed, d, nkc, j1, cur, cs, ex);   // the stream's first chunk
   }
 
   // X[row0 : row0 + 128] into xs (when it stays resident, d <= 128) and its
@@ -242,7 +271,7 @@ struct TileWalk {
     if (d <= SW_XK) stage_x(X, n, d, r0, 0, d, xs);
     const int tid = threadIdx.x;
     if (tid < SW_BM) {
-      float nrm = 0.0f;   // fmaf in k order, as pack_centers and B0 sum
+      float nrm = 0.0f;   // fmaf in k order, as pack_centers sums
       if (r0 + tid < n)
         for (int k = 0; k < d; ++k) {
           const float x = X[(size_t)(r0 + tid) * d + k];
@@ -266,7 +295,7 @@ struct TileWalk {
     for (int kc = 0; kc < nkc; ++kc, ++s) {
       cp_async_wait_all();
       __syncthreads();   // chunk s is visible; slot (s + 1) & 1 is no longer read
-      if (s + 1 < total) fetch_chunk<P>(packed, d, nkc, j0, j1, cur, cs, ex);
+      if (s + 1 < total) fetch_chunk<P>(packed, d, nkc, j1, cur, cs, ex);
       const int k0 = kc * SW_KC;
       const int kr = min(SW_KC, d - k0);
       const float* xb = xs + k0 * SW_LDX;
@@ -385,7 +414,7 @@ __global__ void __launch_bounds__(SW_NT, P == 1 ? 2 : 1)
   const int my_blocks = (nbi - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   // every center tile twice per row block, each in nkc chunks
   TileWalk<P, KIND> walk(X, packed, n, d, 0, nbj, (long)my_blocks * 2 * nbj * nkc, kp, cs, ex,
-                         xs, a2s);
+                         xs, a2s, 0, 0, 0);
   const int ty = walk.ty;
   const int tx = walk.tx;
   for (int e = tid; e < M * P; e += SW_NT) wpart[e] = 0.0f;   // read after a barrier
@@ -538,7 +567,8 @@ __global__ void __launch_bounds__(SW_NT, P == 1 ? 2 : 1)
   const int j0 = (int)((long)slice * nbj / S);
   const int j1 = (int)((long)(slice + 1) * nbj / S);
   const int nkc = (d + SW_KC - 1) / SW_KC;
-  TileWalk<P, KIND> walk(A, packed, m, d, j0, j1, (long)(j1 - j0) * nkc, kp, cs, ex, xs, a2s);
+  TileWalk<P, KIND> walk(A, packed, m, d, j0, j1, (long)(j1 - j0) * nkc, kp, cs, ex, xs, a2s, j0,
+                         j0, 0);
   const int r0 = blockIdx.x * SW_BM;
   walk.stage_rows(r0);
   __syncthreads();
@@ -556,24 +586,139 @@ __global__ void __launch_bounds__(SW_NT, P == 1 ? 2 : 1)
   });
 }
 
-__global__ void __launch_bounds__(NT)
-    pairwise_kernel(const float* __restrict__ A, const float* __restrict__ B, int m, int n,
-                    int d, KParams kp, float* __restrict__ out) {
-  __shared__ TileSmem s;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int r0 = blockIdx.x * BM;
-  const int c0 = blockIdx.y * BN;
-  float k[TM][TN];
-  eval_tile(A, m, B, n, d, r0, c0, s, kp, k);
+// ---------------------------------------------------------------------------
+// B3: B2's evaluation alone, stored
+// ---------------------------------------------------------------------------
+// Shared-memory floats of one pairwise block, in carve order: the ring, the
+// extras ring (||b||^2 and the zero row of u: B is packed at P = 1), the A
+// block and its row norms. Mirrored by
+// repro_torch.kernels.kernel_matvec.pairwise_smem_bytes.
+__host__ __device__ constexpr size_t pairwise_smem_floats(int d) {
+  return 2 * (size_t)(d < SW_KC ? d : SW_KC) * SW_BN + 2 * 2 * (size_t)SW_BN +
+         (size_t)(d < SW_XK ? d : SW_XK) * SW_LDX + SW_BM;
+}
+
+// Output tiles [t0, t1) of block b in row-major order over all nbi x nbj
+// tiles (sym = 0) or over the upper triangle bj >= bi (sym = 1); (bi, bj)
+// is tile t0. The G ranges are contiguous and differ by at most one tile.
+// Mirrored by repro_torch.kernels.kernel_matvec.pairwise_range.
+struct TileRange {
+  long t0, t1;
+  int bi, bj;
+};
+
+__host__ __device__ inline long pairwise_tiles(int nbi, int nbj, int sym) {
+  return sym ? (long)nbi * (nbi + 1) / 2 : (long)nbi * nbj;
+}
+
+__host__ __device__ inline TileRange pairwise_range(int nbi, int nbj, int sym, int G, int b) {
+  const long T = pairwise_tiles(nbi, nbj, sym);
+  TileRange r;
+  r.t0 = (long)b * T / G;
+  r.t1 = (long)(b + 1) * T / G;
+  if (sym) {   // row bi holds tiles bi..nbi-1
+    long start = 0;
+    r.bi = 0;
+    while (r.bi < nbi && start + (nbi - r.bi) <= r.t0) start += nbi - r.bi++;
+    r.bj = r.bi + (int)(r.t0 - start);
+  } else {
+    r.bi = (int)(r.t0 / nbj);
+    r.bj = (int)(r.t0 % nbj);
+  }
+  return r;
+}
+
+// Four consecutive entries of an output row at p, `room` of them inside the
+// row, with streaming stores (a K of gigabytes never stays in L2): one
+// float4 (VEC: p is 16-byte aligned and room is 0 or >= 4), else one float
+// at a time.
+template <bool VEC>
+__device__ __forceinline__ void put4(float* p, int room, float a, float b, float c, float d) {
+  if (VEC) {
+    if (room > 0) __stcs(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+  } else {
+    if (room > 0) __stcs(p, a);
+    if (room > 1) __stcs(p + 1, b);
+    if (room > 2) __stcs(p + 2, c);
+    if (room > 3) __stcs(p + 3, d);
+  }
+}
+
+// This thread's micro-tile of the tile at rows r0.., columns c0.. of the
+// (rows, cols) output: entry (i, j) at row r0 + (i/4)*64 + ty*4 + i%4,
+// column c0 + (j/4)*64 + tx*4 + j%4 (TileWalk's layout). Transposed: entry
+// (i, j) at row c0 + (j/4)*64 + tx*4 + j%4, column r0 + (i/4)*64 + ty*4 +
+// i%4. Entries past rows or cols are not stored.
+template <bool VEC>
+__device__ __forceinline__ void store_tile(float* __restrict__ out, int rows, int cols, int r0,
+                                           int c0, int ty, int tx, const float (&k)[8][8]) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = r0 + ty + TY * i;
-    if (row >= m) continue;
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + (i / 4) * SW_HALF + ty * 4 + i % 4;
+    if (row >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = c0 + tx + TX * j;
-      if (col < n) out[(size_t)row * n + col] = k[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int col = c0 + h * SW_HALF + tx * 4;
+      put4<VEC>(out + (size_t)row * cols + col, cols - col, k[i][4 * h], k[i][4 * h + 1],
+                k[i][4 * h + 2], k[i][4 * h + 3]);
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_tile_t(float* __restrict__ out, int rows, int cols, int r0,
+                                             int c0, int ty, int tx, const float (&k)[8][8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int row = c0 + (j / 4) * SW_HALF + tx * 4 + j % 4;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = r0 + h * SW_HALF + ty * 4;
+      put4<VEC>(out + (size_t)row * cols + col, cols - col, k[4 * h][j], k[4 * h + 1][j],
+                k[4 * h + 2][j], k[4 * h + 3][j]);
+    }
+  }
+}
+
+// Block b evaluates its range of output tiles with TileWalk, staging A's
+// row block as its range enters each row, and stores each tile from
+// registers; sym: the upper triangle of K(A, A), each off-diagonal tile
+// stored twice.
+template <int KIND, bool VEC>
+__global__ void __launch_bounds__(SW_NT, 2)
+    pairwise_kernel(const float* __restrict__ A, const float* __restrict__ packed, int m, int n,
+                    int d, KParams kp, int sym, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int cr = min(d, SW_KC);
+  const int xr = min(d, SW_XK);
+  float* cs = reinterpret_cast<float*>(smem4);   // [2][cr][128]
+  float* ex = cs + 2 * cr * SW_BN;               // [2][2][128]
+  float* xs = ex + 2 * 2 * SW_BN;                // [xr][SW_LDX]
+  float* a2s = xs + xr * SW_LDX;                 // [128]
+
+  const int nbi = (m + SW_BM - 1) / SW_BM;
+  const int nbj = (n + SW_BN - 1) / SW_BN;
+  const int nkc = (d + SW_KC - 1) / SW_KC;
+  const TileRange r = pairwise_range(nbi, nbj, sym, gridDim.x, blockIdx.x);
+  if (r.t0 == r.t1) return;
+  TileWalk<1, KIND> walk(A, packed, m, d, 0, nbj, (r.t1 - r.t0) * nkc, kp, cs, ex, xs, a2s, r.bj,
+                         sym ? r.bi : 0, sym);
+  int bi = r.bi, bj = r.bj, staged = -1;
+  for (long t = r.t0; t < r.t1; ++t) {
+    if (bi != staged) {
+      __syncthreads();   // the last row block's xs and a2s are no longer read
+      walk.stage_rows(bi * SW_BM);
+      __syncthreads();
+      staged = bi;
+    }
+    float k[8][8];
+    walk.eval_tile(k);
+    store_tile<VEC>(out, m, n, bi * SW_BM, bj * SW_BN, walk.ty, walk.tx, k);
+    if (sym && bj != bi) store_tile_t<VEC>(out, n, m, bi * SW_BM, bj * SW_BN, walk.ty, walk.tx, k);
+    if (++bj == nbj) {
+      ++bi;
+      bj = sym ? bi : 0;
     }
   }
 }
@@ -582,6 +727,7 @@ using SweepKernel = void (*)(const float*, const float*, const float*, const flo
                             int, int, KParams, int, float*, int*);
 using MatmulKernel = void (*)(const float*, const float*, const float*, int, int, int, int,
                               KParams, float*, float*);
+using PairwiseKernel = void (*)(const float*, const float*, int, int, int, KParams, int, float*);
 
 // B1's instantiation for a kernel kind, with its dynamic shared memory set.
 template <int P>
@@ -609,6 +755,25 @@ static cudaError_t matmul_kernel(int kind, int smem_bytes, MatmulKernel* k) {
     default: return cudaErrorInvalidValue;
   }
   return cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+}
+
+// B3's, likewise.
+template <bool VEC>
+static cudaError_t pairwise_kernel_vec(int kind, int smem_bytes, PairwiseKernel* k) {
+  switch (kind) {
+    case GAUSSIAN: *k = pairwise_kernel<GAUSSIAN, VEC>; break;
+    case LAPLACIAN: *k = pairwise_kernel<LAPLACIAN, VEC>; break;
+    case MATERN32: *k = pairwise_kernel<MATERN32, VEC>; break;
+    case LINEAR: *k = pairwise_kernel<LINEAR, VEC>; break;
+    case POLYNOMIAL: *k = pairwise_kernel<POLYNOMIAL, VEC>; break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+}
+
+static cudaError_t pairwise_kernel_of(int kind, int vec, int smem_bytes, PairwiseKernel* k) {
+  return vec ? pairwise_kernel_vec<true>(kind, smem_bytes, k)
+             : pairwise_kernel_vec<false>(kind, smem_bytes, k);
 }
 
 // Resident blocks of 256 threads of kernel k on the whole card.
@@ -690,6 +855,36 @@ static cudaError_t matmul_t(const float* A, const float* B, const float* V, cons
   return cudaGetLastError();
 }
 
+// B3's shared memory and resident blocks on the card for (kind, d, VEC).
+static cudaError_t pairwise_slots_t(int kind, int d, int vec, int* smem_bytes, int* slots) {
+  *smem_bytes = (int)(sizeof(float) * pairwise_smem_floats(d));
+  PairwiseKernel k = nullptr;
+  cudaError_t err = pairwise_kernel_of(kind, vec, *smem_bytes, &k);
+  if (err != cudaSuccess) return err;
+  return card_slots(k, *smem_bytes, slots);
+}
+
+// B3's launches: pack_centers (B k-major with ||b||^2, u = 0), then the
+// kernel on min(slots, tiles) blocks. VEC when every output row starts
+// 16-byte aligned (n % 4 == 0). sym needs A and B the same (m, d) matrix.
+static cudaError_t pairwise_t(const float* A, const float* B, int m, int n, int d, KParams kp,
+                              int sym, int slots, float* packed, float* out, cudaStream_t stream) {
+  if (sym && (A != B || m != n)) return cudaErrorInvalidValue;
+  const int vec = n % 4 == 0 && reinterpret_cast<size_t>(out) % 16 == 0;
+  const int smem = (int)(sizeof(float) * pairwise_smem_floats(d));
+  PairwiseKernel k = nullptr;
+  cudaError_t err = pairwise_kernel_of(kp.kind, vec, smem, &k);
+  if (err != cudaSuccess) return err;
+  const int nbi = (m + SW_BM - 1) / SW_BM;
+  const int nbj = (n + SW_BN - 1) / SW_BN;
+  const long tiles = pairwise_tiles(nbi, nbj, sym);
+  const int grid = (int)(tiles < slots ? tiles : slots);
+  pack_centers<1><<<nbj, SW_BN, 0, stream>>>(B, nullptr, n, d, 0, packed);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  k<<<grid, SW_NT, smem, stream>>>(A, packed, m, n, d, kp, sym, out);
+  return cudaGetLastError();
+}
+
 static KParams kparams(int kind, float sigma, float coef, float ss, float c, int degree) {
   KParams kp;
   kp.kind = kind;
@@ -708,8 +903,6 @@ using rt::KParams;
 extern "C" {
 
 const char* rt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-int rt_tile_smem_bytes() { return (int)sizeof(rt::TileSmem); }
 
 int rt_sweep_grid(int P, int kind, int smem_bytes, int* grid) {
   switch (P) {
@@ -774,14 +967,28 @@ int rt_kernel_matmul(const void* A, const void* B, const void* V, const void* ad
   }
 }
 
+int rt_pairwise_slots(int kind, int d, int vec, int* smem_bytes, int* slots) {
+  return (int)rt::pairwise_slots_t(kind, d, vec, smem_bytes, slots);
+}
+
+// Block b's range of B3's tiles: out = {t0, t1, bi, bj} (rt::pairwise_range).
+int rt_pairwise_range(int m, int n, int sym, int G, int b, long long* out) {
+  const rt::TileRange r = rt::pairwise_range((m + rt::SW_BM - 1) / rt::SW_BM,
+                                             (n + rt::SW_BN - 1) / rt::SW_BN, sym, G, b);
+  out[0] = r.t0;
+  out[1] = r.t1;
+  out[2] = r.bi;
+  out[3] = r.bj;
+  return 0;
+}
+
 int rt_pairwise(const void* A, const void* B, int m, int n, int d, int kind, float sigma,
-                float coef, float ss, float c, int degree, void* out, void* stream) {
+                float coef, float ss, float c, int degree, int sym, int slots, void* packed,
+                void* out, void* stream) {
   const KParams kp = rt::kparams(kind, sigma, coef, ss, c, degree);
-  const dim3 grid((m + rt::BM - 1) / rt::BM, (n + rt::BN - 1) / rt::BN);
-  rt::pairwise_kernel<<<grid, rt::NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(A), static_cast<const float*>(B), m, n, d, kp,
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return (int)rt::pairwise_t(static_cast<const float*>(A), static_cast<const float*>(B), m, n, d,
+                             kp, sym, slots, static_cast<float*>(packed),
+                             static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -9,8 +9,9 @@ beside its plain PyTorch twin:
 * :func:`sharded_sweep`   (B4) the sweep as B2 launches over C-shards, for
   M past the fused sweep's device workspace.
 
-The kernels live in ``csrc/kernel_matvec.cu`` and ``csrc/tile.cuh`` (whose
-header comments give each kernel's bound on the card and its design). A
+The kernels live in ``csrc/kernel_matvec.cu`` (whose header comment gives
+each kernel's bound on the card and its design) and the kernel map in
+``csrc/tile.cuh``. A
 wrapper launches its kernel for a CUDA tensor and takes the plain twin only
 for a CPU tensor; there is no fallback from one to the other. Each wrapper
 counts its kernel launches in its ``launches`` attribute. The kernels take
@@ -27,7 +28,11 @@ reads ``2 * nbi * nbj`` in 128 x 128 tiles (:func:`sweep_tile_grid`) — the
 TPU kernel's one-evaluation-per-tile property does not hold here. The
 kernel matmul (B2) is the sweep's pass 1 alone on the same tile code, over
 an (A row blocks, slices of B) grid (:func:`matmul_slices`,
-:func:`matmul_smem_bytes`). B3 keeps B0's 64 x 64 tiles (``BM``, ``BN``).
+:func:`matmul_smem_bytes`). The pairwise Gram (B3) is the same evaluation
+alone, stored: a persistent grid splits the output tiles into balanced
+contiguous ranges (:func:`pairwise_range`), and K(C, C) of one tensor takes
+a symmetric route that evaluates the upper triangle of tiles and stores each
+off-diagonal tile twice (:func:`pairwise_symmetric`).
 Only fp32 inputs are taken: bf16 storage and Kahan compensation are
 ROADMAP.md A7.
 """
@@ -42,14 +47,9 @@ from repro_torch.core.kernels import KernelSpec, tile_eval
 
 Tensor = torch.Tensor
 
-BM = 64          # B0's Gram tile rows (A side), B3
-BN = 64          # B0's Gram tile columns (B side)
-DK = 32          # B0's d-chunk staged through shared memory per round
-NT = 256         # threads of a Gram-tile block (B0, B1 and B2)
+NT = 256         # threads of a Gram-tile block (B1, B2 and B3)
 MAX_P = 4        # widest right-hand side one kernel launch takes
 _P_PADS = (1, 4)   # compiled widths; p is padded up to the next one
-#: shared memory of one staged tile (csrc/tile.cuh ``TileSmem``)
-TILE_SMEM_BYTES = 4 * (2 * DK * (BM + 1) + BM + BN)
 #: the sweep's tiling (csrc/kernel_matvec.cu ``SW_*``): 128-row blocks of
 #: X, 128-center tiles, 32-deep k-chunks of C in its ring, X resident up to
 #: d = 128 (deeper X is staged again per tile in 128-deep chunks)
@@ -64,8 +64,6 @@ MM_MAX_SLICES = 16
 #: the sweep keeps its w partial in shared memory while the block's total
 #: stays under this, so that at least two blocks fit on an SM
 W_SMEM_LIMIT = 100 * 1024
-#: pairwise grid: columns of tiles run on gridDim.y (at most 65535)
-_MAX_GRID_Y = 65535
 
 #: kernel kind -> the code of csrc/tile.cuh ``Kind``
 KIND_CODES = {"gaussian": 0, "laplacian": 1, "matern32": 2, "linear": 3, "polynomial": 4}
@@ -210,15 +208,9 @@ def _kparams(spec: KernelSpec) -> tuple:
             float(p.get("c", 1.0)), degree)
 
 
-@functools.cache
 def _lib():
     from repro_torch.kernels import build   # lazy: needs nvcc, only on the card
-    lib = build.load()
-    if lib.rt_tile_smem_bytes() != TILE_SMEM_BYTES:
-        raise RuntimeError(
-            f"csrc/tile.cuh TileSmem is {lib.rt_tile_smem_bytes()} bytes, "
-            f"kernel_matvec.py assumes {TILE_SMEM_BYTES}")
-    return lib
+    return build.load()
 
 
 def _check(code: int, what: str) -> None:
@@ -474,6 +466,82 @@ def pairwise_kernel_plain(A: Tensor, B: Tensor, *, spec: KernelSpec) -> Tensor:
     return tile_eval(spec, A, B)
 
 
+def pairwise_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one pairwise (B3) block. Mirrors
+    ``pairwise_smem_floats`` of csrc/kernel_matvec.cu: the sweep's ring, an
+    extras ring of ||b||^2 and u (B is packed at P = 1 with u = 0), the A
+    block (as :func:`sweep_smem_bytes`) and its row norms."""
+    cr, xr = min(d, SWEEP_KC), min(d, SWEEP_XK)
+    return 4 * (2 * cr * SWEEP_BN + 2 * 2 * SWEEP_BN + xr * SWEEP_LDX + SWEEP_BM)
+
+
+def pairwise_grid_model(d: int) -> int:
+    """Resident pairwise blocks on the modelled card: SMs x the blocks one SM
+    holds by threads, shared memory and the launch bounds' 2 blocks (<= 128
+    registers a thread). The launch asks the card (``rt_pairwise_slots``);
+    ``chip_smoke.py`` holds the two equal."""
+    per_sm = min(SM_THREADS // NT, SM_SMEM // (pairwise_smem_bytes(d) + BLOCK_SMEM_RESERVED), 2)
+    return SMS * max(per_sm, 1)
+
+
+def pairwise_symmetric(A: Tensor, B: Tensor) -> bool:
+    """Whether K(A, B) takes the symmetric route: A and B are one storage
+    (same data pointer, shape and strides), so K is symmetric bit for bit."""
+    return (A.data_ptr() == B.data_ptr() and A.shape == B.shape
+            and A.stride() == B.stride())
+
+
+def pairwise_tiles(m: int, n: int, sym: bool) -> int:
+    """Output tiles B3 evaluates: all nbi x nbj 128 x 128 tiles, or the
+    nbi (nbi + 1) / 2 of the upper triangle on the symmetric route."""
+    nbi, nbj = -(-m // SWEEP_BM), -(-n // SWEEP_BN)
+    return nbi * (nbi + 1) // 2 if sym else nbi * nbj
+
+
+def pairwise_range(m: int, n: int, sym: bool, G: int, b: int) -> tuple[int, int, int, int]:
+    """(t0, t1, bi, bj): block b's output tiles [t0, t1) in row-major order
+    (of the upper triangle bj >= bi when ``sym``) and the tile (bi, bj) of
+    t0, on a grid of G blocks; the ranges are contiguous and differ by at
+    most one tile. Mirrors ``pairwise_range`` of csrc/kernel_matvec.cu,
+    which the kernel walks."""
+    nbi, nbj = -(-m // SWEEP_BM), -(-n // SWEEP_BN)
+    T = pairwise_tiles(m, n, sym)
+    t0, t1 = b * T // G, (b + 1) * T // G
+    if not sym:
+        return t0, t1, t0 // nbj, t0 % nbj
+    bi, start = 0, 0
+    while bi < nbi and start + nbi - bi <= t0:
+        start += nbi - bi
+        bi += 1
+    return t0, t1, bi, bi + t0 - start
+
+
+def pairwise_walk(m: int, n: int, sym: bool, G: int, b: int) -> list[tuple[int, int]]:
+    """The output tiles (bi, bj) block b evaluates, in its order: row-major
+    from :func:`pairwise_range`'s first tile, as the kernel steps."""
+    t0, t1, bi, bj = pairwise_range(m, n, sym, G, b)
+    nbj = -(-n // SWEEP_BN)
+    tiles = []
+    for _ in range(t1 - t0):
+        tiles.append((bi, bj))
+        bj += 1
+        if bj == nbj:
+            bi += 1
+            bj = bi if sym else 0
+    return tiles
+
+
+@functools.cache
+def _pairwise_slots(kind: int, d: int, vec: bool, device_index: int) -> tuple[int, int]:
+    """(shared memory bytes, resident blocks on the card) of B3's
+    instantiation for (kernel kind code, vector stores) at depth d (the
+    caller holds the device context of ``device_index``)."""
+    smem, slots = ctypes.c_int(0), ctypes.c_int(0)
+    _check(_lib().rt_pairwise_slots(kind, d, int(vec), ctypes.byref(smem), ctypes.byref(slots)),
+           "pairwise slots query")
+    return smem.value, slots.value
+
+
 def _pairwise_kernel_cuda(A, B, spec):
     what = "pairwise_kernel"
     m, d = A.shape
@@ -482,21 +550,25 @@ def _pairwise_kernel_cuda(A, B, spec):
         raise ValueError(f"{what}: shapes A {tuple(A.shape)}, B {tuple(B.shape)}")
     if m == 0 or n == 0 or d == 0:
         raise ValueError(f"{what}: empty operand (m={m}, n={n}, d={d})")
-    if -(-n // BN) > _MAX_GRID_Y:
-        raise ValueError(f"{what}: B has {n} rows; the grid takes at most "
-                         f"{_MAX_GRID_Y * BN}")
     _check_operands(what, A.device, A=A, B=B)
     out = torch.empty(m, n, dtype=torch.float32, device=A.device)
+    # the prologue's B: per 128-row tile, B k-major, ||b||^2 and a zero row
+    packed = torch.empty(-(-n // SWEEP_BN) * (d + 2) * SWEEP_BN, dtype=torch.float32,
+                         device=A.device)
     with torch.cuda.device(A.device):
-        code = _lib().rt_pairwise(_ptr(A), _ptr(B), m, n, d, *_kparams(spec),
-                                  _ptr(out), _stream(A.device))
+        kp = _kparams(spec)
+        slots = _pairwise_slots(kp[0], d, n % 4 == 0, A.device.index)[1]
+        code = _lib().rt_pairwise(_ptr(A), _ptr(B), m, n, d, *kp, int(pairwise_symmetric(A, B)),
+                                  slots, _ptr(packed), _ptr(out), _stream(A.device))
         _check(code, what)
         pairwise_kernel.launches += 1
     return out
 
 
 def pairwise_kernel(A: Tensor, B: Tensor, *, spec: KernelSpec) -> Tensor:
-    """K(A, B) materialized tile by tile (the preconditioner's K_MM)."""
+    """K(A, B) materialized tile by tile (the preconditioner's K_MM). Passing
+    one tensor as both A and B (:func:`pairwise_symmetric`) evaluates each
+    symmetric pair of tiles once on the card."""
     if _route("pairwise_kernel", A, B) == "cpu":
         return pairwise_kernel_plain(A, B, spec=spec)
     return _pairwise_kernel_cuda(A, B, spec)

@@ -97,8 +97,9 @@ class CudaKernelOps(OpsBase):
     def gram(self, A: Tensor, B: Tensor) -> Tensor:
         # Per-buffer override: gram feeds the preconditioner's Cholesky and
         # stays float32 (a narrower input is widened, never the reverse).
-        if A.dtype.itemsize < 4:
-            A = A.float()
-        if B.dtype.itemsize < 4:
-            B = B.float()
-        return km.pairwise_kernel(_c(A), _c(B), spec=self._spec)
+        # One tensor passed twice stays one, so K(C, C) takes the kernel's
+        # symmetric route.
+        same = B is A
+        A = _c(A.float() if A.dtype.itemsize < 4 else A)
+        B = A if same else _c(B.float() if B.dtype.itemsize < 4 else B)
+        return km.pairwise_kernel(A, B, spec=self._spec)

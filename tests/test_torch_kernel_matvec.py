@@ -193,8 +193,14 @@ def test_sweep_tiling_and_shared_memory_plan():
     assert km.sweep_smem_bytes(10**6, 1, 90)[0] == 4 * (2 * 32 * 128 + 2 * 2 * 128 + 90 * 132
                                                         + 128 + 4 * 128 + 128)
     assert km.sweep_smem_bytes(10**6, 1, 512)[0] == km.sweep_smem_bytes(10**6, 1, 128)[0]
-    # the tiling constants the CUDA sources assume (B0 for B2 and B3)
-    assert km.TILE_SMEM_BYTES == 17152
+    # the pairwise Gram's (B3) plan on the same tile (csrc/kernel_matvec.cu
+    # pairwise_smem_floats): ring 2 x min(d, 32) k-rows, extras 2 x (1 + 1)
+    # (||b||^2 and the zero row of u), A block min(d, 128) x 132, row norms;
+    # two blocks an SM at both fits' depths
+    assert km.pairwise_smem_bytes(18) == 4 * (2 * 18 * 128 + 2 * 2 * 128 + 18 * 132 + 128)
+    assert km.pairwise_smem_bytes(90) == 4 * (2 * 32 * 128 + 2 * 2 * 128 + 90 * 132 + 128)
+    assert km.pairwise_smem_bytes(512) == km.pairwise_smem_bytes(128)
+    assert km.pairwise_grid_model(18) == km.pairwise_grid_model(90) == 264
     kind, sigma, coef, ss, c, degree = km._kparams(tk.make_kernel("gaussian", sigma=4.0).spec)
     assert (kind, sigma, coef) == (0, 4.0, -0.5 / 16.0)
 
@@ -340,3 +346,114 @@ def test_wide_rhs_plan_is_per_group():
     assert wide.scratch_bytes == km.sweep_smem_bytes(M, 4, d)[0]
     stacked = ops.plan(n, M, d, 3, systems=6)
     assert (stacked.p, stacked.systems, stacked.io_bytes) == (18, 6, four.io_bytes)
+
+
+# ---------------------------------------------------------------------------
+# The pairwise Gram (B3): a persistent grid over balanced ranges of output
+# tiles, and a symmetric route for K(C, C) of one tensor.
+# ---------------------------------------------------------------------------
+# (m, n, symmetric) on the path: SUSY's and MillionSongs' K_MM, one K_nM-cache
+# row block (65,536 rows against SUSY's centers), and the full grid at K_MM's
+# shape (K(C, C.clone()))
+PAIRWISE_PLANS = [(10_000, 10_000, True), (50_000, 50_000, True), (65_536, 10_000, False),
+                  (10_000, 10_000, False)]
+
+
+@pytest.mark.parametrize("m,n,sym", PAIRWISE_PLANS)
+@pytest.mark.parametrize("G", [264, 7])
+def test_pairwise_schedule_covers_each_tile_once(m, n, sym, G):
+    """Every tile once (the upper ones once and, mirrored, the lower ones
+    once on the symmetric route); ranges contiguous, in row-major order and
+    balanced to within one tile; each range's first tile is its t0."""
+    nbi, nbj = -(-m // 128), -(-n // 128)
+    T = km.pairwise_tiles(m, n, sym)
+    assert T == (nbi * (nbi + 1) // 2 if sym else nbi * nbj)
+    order = [(bi, bj) for bi in range(nbi) for bj in range(bi if sym else 0, nbj)]
+    assert len(order) == T
+    walked, sizes, t_next = [], [], 0
+    for b in range(G):
+        t0, t1, bi, bj = km.pairwise_range(m, n, sym, G, b)
+        assert t0 == t_next and (t1 == t0 or order[t0] == (bi, bj))
+        tiles = km.pairwise_walk(m, n, sym, G, b)
+        assert len(tiles) == t1 - t0
+        walked += tiles
+        sizes.append(t1 - t0)
+        t_next = t1
+    assert t_next == T and walked == order
+    assert max(sizes) - min(sizes) <= 1
+    if sym:
+        stored = walked + [(bj, bi) for bi, bj in walked if bi != bj]
+        assert sorted(stored) == [(bi, bj) for bi in range(nbi) for bj in range(nbj)]
+
+
+def _scheduled_gram(A, B, spec, G):
+    """K(A, B) filled tile by tile as the kernel's grid walks it (the
+    symmetric route for one tensor: each upper tile also stored transposed);
+    entries no block writes stay NaN."""
+    m, n = A.shape[0], B.shape[0]
+    sym = km.pairwise_symmetric(A, B)
+    K = torch.full((m, n), float("nan"))
+    G = min(G, km.pairwise_tiles(m, n, sym))   # as the launch caps its grid
+    for b in range(G):
+        for bi, bj in km.pairwise_walk(m, n, sym, G, b):
+            r, c = slice(bi * 128, (bi + 1) * 128), slice(bj * 128, (bj + 1) * 128)
+            K[r, c] = km.pairwise_kernel_plain(A[r], B[c], spec=spec)
+            if sym and bi != bj:
+                K[c, r] = K[r, c].T
+    return K
+
+
+def _assert_gram_close(got, ref, C, name, params):
+    """TOL, but on the diagonal of a laplacian K(C, C): there each side's
+    fp32 ||c||^2 + ||c||^2 - 2<c, c> leaves up to ~4 eps ||c||^2 of its own
+    cancellation (its norm and dot product summed in other orders), which
+    the laplacian's sqrt at distance 0 turns into sqrt(4 eps ||c||^2) / sigma
+    a side."""
+    off = ~np.eye(len(C), dtype=bool)
+    np.testing.assert_allclose(got[off], ref[off], **TOL)
+    slack = 0.0
+    if name == "laplacian":
+        eps = np.finfo(np.float32).eps / 2
+        slack = 2 * np.sqrt(4 * eps * (C.astype(np.float64) ** 2).sum(1)) / params["sigma"]
+    assert (np.abs(got.diagonal() - ref.diagonal())
+            <= TOL["atol"] + TOL["rtol"] * np.abs(ref.diagonal()) + slack).all()
+
+
+@pytest.mark.parametrize("name,params", KERNELS)
+@pytest.mark.parametrize("M", [127, 129, 300])
+def test_pairwise_symmetric_route_matches_pallas(name, params, M):
+    """K(C, C) with one tensor passed twice (the fit's K_MM) through
+    ``km.pairwise_kernel`` and ``CudaKernelOps.gram``, and filled as the
+    kernel's symmetric schedule fills it (and its full one, for C and a
+    copy), against the reference's pairwise kernel in interpret mode at
+    ragged M around the 128 tile; TOL (see :func:`_assert_gram_close`)."""
+    C = _data(M, 1, 7, None, seed=M)[0]
+    jspec, tspec = _specs(name, params)
+    ref = np.asarray(pairwise_kernel_pallas(J(C), J(C), spec=jspec, interpret=True))
+    Ct = T(C)
+    assert km.pairwise_symmetric(Ct, Ct) and not km.pairwise_symmetric(Ct, Ct.clone())
+    ops = get_ops("cuda", tk.make_kernel(name, **params))
+    for got in (km.pairwise_kernel(Ct, Ct, spec=tspec), ops.gram(Ct, Ct),
+                _scheduled_gram(Ct, Ct, tspec, G=5), _scheduled_gram(Ct, Ct.clone(), tspec, G=5)):
+        _assert_gram_close(got.numpy(), ref, C, name, params)
+
+
+def test_gram_passes_one_tensor_twice(monkeypatch):
+    """CudaKernelOps.gram hands the kernel one tensor for K(C, C), after its
+    float32 widening and contiguity, so the fit's K_MM takes the symmetric
+    route; two tensors stay two."""
+    seen = []
+    monkeypatch.setattr(km, "pairwise_kernel",
+                        lambda A, B, spec: seen.append(km.pairwise_symmetric(A, B)))
+    ops = get_ops("cuda", tk.make_kernel("gaussian"))
+    C = T(_data(40, 1, 6, None, seed=3)[0])
+    ops.gram(C, C)
+    ops.gram(C.half(), C.half())
+    Cn = C.T.contiguous().T             # not contiguous
+    ops.gram(Cn, Cn)
+    ops.gram(C, C.clone())
+    assert seen == [True, False, True, False]
+    half = C.half()
+    ops.gram(half, half)
+    assert seen[-1]
+

@@ -1,33 +1,50 @@
-"""Time the sweep kernels at the main path's shapes on one GPU, on random data.
+"""Time the Gram-tile kernels at the main path's shapes on one GPU, on random data.
 
 B1 (``fused_sweep``) at the SUSY and MillionSongs sweep shapes, B2
 (``kernel_matmul``) at SUSY's predict and at one launch of B4's transposed
-pass, and B4 (``sharded_sweep``) at the MillionSongs shape: medians of CUDA
-events, each line with the card's name and power limit. Rows are
+pass, B3 (``pairwise_kernel``) at both fits' K_MM (one tensor passed twice,
+as the fit passes its centers) and at a 65,536-row K_nM-cache block against
+SUSY's centers, and B4 (``sharded_sweep``) at the MillionSongs shape:
+medians of CUDA events, each line with the card's name and power limit.
+``--hash`` also prints the sha256 of each B3 result's bytes. Rows are
 ``torch.randn`` from ``--seed`` and the centers a random subset of them;
 gaussian sigma as the paper's tasks (4 for d = 18, 6 for d = 90). Meant for
-comparing two checkouts in turns on one card (run it from each); needs a
-CUDA card. From the repository root:
+comparing two checkouts in turns on one card: ``--tree`` imports the kernels
+of another checkout (default: this one), on the same inputs. Needs a CUDA
+card. From the repository root:
 
-    python3 tools/kernel_times.py [--only b1,b2,b4] [--reps 5] [--seed 0]
+    python3 tools/kernel_times.py [--only b1,b2,b3,b4] [--reps 5] [--seed 0]
+                                  [--tree DIR] [--hash]
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+def sha256(K) -> str:
+    """sha256 of a device tensor's bytes, copied to the host in row chunks."""
+    h = hashlib.sha256()
+    for r0 in range(0, K.shape[0], 4096):
+        h.update(K[r0:r0 + 4096].cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="b1,b2,b4", help="comma-separated subset of b1,b2,b4")
+    ap.add_argument("--only", default="b1,b2,b3,b4",
+                    help="comma-separated subset of b1,b2,b3,b4")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]),
+                    help="checkout whose src/repro_torch is timed (default: this one)")
+    ap.add_argument("--hash", action="store_true", help="print the sha256 of each B3 result")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
     import torch
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA card", file=sys.stderr)
@@ -68,6 +85,18 @@ def main() -> int:
         if "b2" in only and d == 18:
             Xt = torch.randn(500_000, d, generator=g, device="cuda")
             report(f"B2 m={Xt.shape[0]} n={M} d={d}", lambda: km.kernel_matmul(Xt, C, u, spec=spec))
+        if "b3" in only:
+            gram = lambda: km.pairwise_kernel(C, C, spec=spec)
+            report(f"B3 m=n={M} d={d} (K_MM, one tensor twice)", gram)
+            if args.hash:
+                print(f"B3 m=n={M} d={d} sha256 {sha256(gram())}", flush=True)
+        if "b3" in only and d == 18:
+            Xr = X[:65_536]
+            report(f"B3 m={Xr.shape[0]} n={M} d={d} (a K_nM-cache row block)",
+                   lambda: km.pairwise_kernel(Xr, C, spec=spec))
+            if args.hash:
+                print(f"B3 m={Xr.shape[0]} n={M} d={d} sha256 "
+                      f"{sha256(km.pairwise_kernel(Xr, C, spec=spec))}", flush=True)
         if "b2" in only and d == 90:
             Cj, Xr = C[:17_280], X[:km.SHARD_ROW_CHUNK]
             t = torch.randn(Xr.shape[0], 1, generator=g, device="cuda")
