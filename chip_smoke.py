@@ -32,6 +32,17 @@ result line:
                transpose, its shared memory and resident blocks against
                the mirror, and every block's range of tiles against
                ``pairwise_range``; B4 also against B1, with ragged shards.
+   compensated — the compensated builds of B1, B2 and B4 (bf16 and fp32:
+               the bf16 policy's and the reference's compensated=True fp32
+               case) against their compensated twins, for the five kinds,
+               n, M in 1, 127, 128, 129, d in 1, 18, 90, 129, p = 1..5 (u
+               at fp32 or at the build's type in turn; bf16 u gives B1 a
+               bf16 output): B1 with v, without v, under row_mask (masked
+               rows bit-equal to the valid prefix); B2 with and without
+               add, fp32 and bf16 out, unsplit and most-split; B4 with its
+               t spilled in bf16 (masked rows bit-equal to the prefix); B1
+               with its w partial and carry in global memory; both builds'
+               plans against their mirrors.
 4. blocked  — the blocked Cholesky's tile kernels B5-B7 against their
                twins at the ragged test shapes, a 1280 tile and the last
                80-wide panel's update (k = 1280); B5 at widths around its
@@ -54,6 +65,15 @@ result line:
                small fit against the plain "torch" backend (and, at
                lam = 1e-6 over 4 center draws, against float64 fits); a
                sweep at that shape against float32 and float64 twins.
+   bf16     — the bf16 policy at SUSY's shape: the bf16 compensated B1
+               sweep (n = 4x10^6, M = 10^4) and B2 at predict's shape
+               against float64 twins on the same bf16 inputs (the kernels'
+               accumulation, held like the fp32 checks) and on the
+               unquantized inputs (the policy's error, printed), B1 twice
+               bit-equal; then the full-size fit with precision="bf16" on
+               the fp32 fit's data and seed: stage times, device peak, test
+               error and launches by build (47 bf16 B1), beside the fp32
+               fit's.
 6. msd      — the large-M fit at the paper's MillionSongs size (synthetic
                YearPredictionMSD split: 463,715 / 51,630 rows, d = 90,
                gaussian sigma = 6, lam = 1e-6, M = 5x10^4, t = 20): the
@@ -64,7 +84,9 @@ result line:
                B4 (``REPRO_SWEEP_BUDGET_MB``) against the first, and the
                test MSE of both and of a plain float32 solve; two small
                forced-blocked fits (M = 320 and 1024) against in-core and
-               float64 fits.
+               float64 fits; then one bf16 sweep on the policy's B4 route
+               (t spilled in bf16) and on B1's bf16 build, against a
+               float64 twin on the same bf16 inputs, timed.
 7. times    — the full-size sweeps (SUSY: B1; MillionSongs: B1 and B4) and
                the predict-shape kernel matmul against float32 and float64
                twins; the MillionSongs fit's blocked T and A against
@@ -80,7 +102,9 @@ result line:
                both fits' shapes), B2's (at both of its), B3's (at its
                three), B5's and B6's device operations per call by name
                (``torch.profiler``); then one ``kernels`` JSON line (B3's
-               entry: SUSY's K_MM).
+               entry: SUSY's K_MM; the bf16 builds of B1, B2 and B4 as
+               entries of their own, their launches from the bf16 fit and
+               the bf16 B4 sweep).
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -187,6 +211,20 @@ UPDATE_SHAPES = ((80, 80, 1280), (44, 44, 256), (116, 116, 192), (4000, 1280, 12
 PRED_RTOL = 1e-7
 #: center draws of the small lam = 1e-6 fits held against float64 fits
 SMALL_SEEDS = 4
+#: the compensated builds the kernel checks hold against their twins: bf16
+#: (the bf16 policy's) and fp32 (the reference's compensated=True fp32 case)
+COMP_DTYPES = ("bfloat16", "float32")
+#: right-hand-side widths of the compensated checks, one shape each in turn
+COMP_WIDTHS = (1, 2, 3, 4, 5)
+#: a bf16 result against its twin: both round the same fp32 sum to bf16,
+#: which may fall either side of a rounding boundary, so one bf16 unit in
+#: the last place (at most 2^-7 of a value: 8 significant bits) of the
+#: largest entry is added to the fp32 tolerance; B4's bf16 t spill likewise
+#: moves w_j by up to 2^-7 sum_i |K_ij t_i|
+BF16_RTOL = 2.0 ** -7
+#: the bf16 policy's error against float64 on unquantized inputs, as the
+#: reference documents it (printed, not held: C.1 measures 1.005e-2)
+POLICY_BOUND = 1e-2
 SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
 SOURCE_BLOCKED = "src/repro_torch/kernels/csrc/blocked_cholesky.cu"
 DEVICE = "cuda"
@@ -202,6 +240,11 @@ REPLACES = {
 SOURCES = {name: SOURCE for name in ("fused_sweep", "kernel_matmul", "pairwise_kernel")}
 #: B4 is B2's launches in a loop; its source is the wrapper that composes them
 SOURCES["sharded_sweep"] = "src/repro_torch/kernels/kernel_matvec.py"
+#: the bf16 compensated builds of B1 and B2 (the tile code is csrc/sweep.cuh);
+#: B4's is its B2 launches
+SOURCES.update(fused_sweep_bf16c="src/repro_torch/kernels/csrc/kernel_matvec_bf16c.cu",
+               kernel_matmul_bf16c="src/repro_torch/kernels/csrc/kernel_matvec_bf16c.cu",
+               sharded_sweep_bf16c="src/repro_torch/kernels/kernel_matvec.py")
 SOURCES.update({name: SOURCE_BLOCKED for name in ("potrf_tile", "trsm_panel",
                                                   "trailing_update")})
 
@@ -219,14 +262,14 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def close_err(got, ref) -> tuple[float, float]:
+def close_err(got, ref, rtol: float = TOL["rtol"]) -> tuple[float, float]:
     """(max |got - ref|, max |got - ref| / (atol + rtol * max |ref|)); the
     second must stay <= 1. The kernel and its twin sum in different orders,
     so the fp32 rounding scales with the magnitudes of the whole result, not
     with each entry (an entry near 0 by cancellation keeps the error of its
-    terms)."""
+    terms). A bf16 result is held with ``rtol`` raised by BF16_RTOL."""
     diff = float((got.double() - ref.double()).abs().max())
-    return diff, diff / (TOL["atol"] + TOL["rtol"] * float(ref.double().abs().max()))
+    return diff, diff / (TOL["atol"] + rtol * float(ref.double().abs().max()))
 
 
 def phase_device(torch):
@@ -435,14 +478,14 @@ def check_matmul_plan(torch, km) -> None:
     lib = km._lib()
     for p in (1, 4):
         for d in (18, 90):
-            smem, slots = km._matmul_slots(km._pad_p(p), km.KIND_CODES["gaussian"], d, dev)
+            smem, slots = km._matmul_slots(km._pad_p(p), km.KIND_CODES["gaussian"], d, 0, dev)
             model = km.matmul_grid_model(p, d)
             say(f"[kernels] B2 plan p={p} d={d}: shared memory {smem} B (mirror "
                 f"{km.matmul_smem_bytes(p, d)}), resident blocks {slots} (model {model})")
             check(smem == km.matmul_smem_bytes(p, d) and slots == model,
                   f"B2's plan at p={p} d={d} is not its mirror's")
     for m, n, d in MATMUL_PATH_SHAPES:
-        slots = km._matmul_slots(1, km.KIND_CODES["gaussian"], d, dev)[1]
+        slots = km._matmul_slots(1, km.KIND_CODES["gaussian"], d, 0, dev)[1]
         S = lib.rt_matmul_slices(m, n, slots)
         say(f"[kernels] B2 m={m} n={n} d={d}: {S} slices on {slots} resident blocks")
         check(S == km.matmul_slices(m, n, slots), f"B2's split at m={m} n={n} is not the mirror's")
@@ -580,6 +623,149 @@ def check_sharded(torch, km, spec, X, C, u, v, shard: int, res: dict, tag: str) 
     res["sharded row_mask"] = close_err(
         got_m.reshape(M, p),
         km.sharded_sweep_plain(Xj, C, u2, v2, spec=spec, row_mask=mask, shard_m=shard))
+
+
+def spill_err(torch, km, spec, got, ref, X, C, t) -> tuple[float, float]:
+    """(max |got - ref|, max_j |got_j - ref_j| / (atol + rtol max|ref| +
+    BF16_RTOL S_j)) for B4 with its t spilled in bf16, S = |K(X, C)|^T |t|:
+    the kernel and its twin round t's fp32 sums to bf16, and an entry whose
+    sums fall either side of a rounding boundary moves w_j by up to
+    one bf16 unit of t_i times |K_ij|. Small shapes only (K is
+    materialized)."""
+    K = km.pairwise_kernel_plain(X.float(), C.float(), spec=spec).abs().double()
+    S = K.T @ t.double().abs()
+    diff = (got.double() - ref.double()).abs()
+    lim = TOL["atol"] + TOL["rtol"] * float(ref.double().abs().max()) + BF16_RTOL * S
+    return float(diff.max()), float((diff / lim).max())
+
+
+def check_compensated(torch, km, spec, X, C, u, v, tag: str) -> dict:
+    """The compensated builds of B1, B2 and B4 against their compensated
+    twins, X and C at the build's type: B1 with v, without v and under
+    ``row_mask`` (masked junk rows bit-equal to the valid prefix), and its
+    tile count; B2 with and without ``add``, fp32 and bf16 out, on the
+    unsplit and the most-split grid; B4 with its t spilled in bf16 (ragged
+    64-row shards), masked rows bit-equal to the prefix. Returns
+    {check: (max abs err, ratio)}."""
+    n, M = X.shape[0], C.shape[0]
+    p = u.shape[1]
+    bf, f32 = torch.bfloat16, torch.float32
+    kw = dict(spec=spec, compensated=True)
+    res = {}
+
+    def held(name, got, ref):
+        res[name] = close_err(got, ref, TOL["rtol"] + (BF16_RTOL if got.dtype == bf else 0.0))
+
+    w, cnt = km.fused_sweep(X, C, u, v, return_tile_count=True, **kw)
+    held(f"sweep ({w.dtype})", w, km.fused_sweep_plain(X, C, u, v, **kw)[0])
+    nbi, nbj = km.sweep_tile_grid(n, M)
+    check(int(cnt) == len(km.column_groups(p)) * 2 * nbi * nbj, f"{tag}: tile count {int(cnt)}")
+    held("sweep v=None", km.fused_sweep(X, C, u, None, **kw),
+         km.fused_sweep_plain(X, C, u, None, **kw)[0])
+    keep = n - min(20, n // 2)
+    Xj = X.clone()
+    Xj[keep:] = 123.0
+    mask = torch.zeros(n, device=X.device)
+    mask[:keep] = 1.0
+    got_m = km.fused_sweep(Xj, C, u, v, row_mask=mask, **kw)
+    got_p = km.fused_sweep(X[:keep].contiguous(), C, u, v[:keep].contiguous(), **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got_m, got_p), f"{tag}: masked rows changed the compensated sweep "
+          f"(max diff {float((got_m.double() - got_p.double()).abs().max())})")
+    for slots, add, out in ((1, v, bf), (1, None, f32), (1 << 30, v, f32), (1 << 30, None, bf)):
+        ref = km.kernel_matmul_plain(X, C, u, add, out_dtype=out, **kw)
+        got = (km._kernel_matmul_cuda(X, C, u, add, slots=slots, out_dtype=out, **kw) if p <= 4
+               else km.kernel_matmul(X, C, u, add, out_dtype=out, **kw))
+        held(f"matmul slots={slots} add={add is not None} out={out}", got, ref)
+    sk = dict(kw, shard_m=64, t_dtype=bf, out_dtype=f32)
+    t = km.kernel_matmul_plain(X, C, u, v, out_dtype=bf, **kw)
+    res["sharded bf16 t"] = spill_err(torch, km, spec, km.sharded_sweep(X, C, u, v, **sk),
+                                      km.sharded_sweep_plain(X, C, u, v, **sk), X, C, t)
+    got_m = km.sharded_sweep(Xj, C, u, v, row_mask=mask, **sk)
+    got_p = km.sharded_sweep(X[:keep].contiguous(), C, u, v[:keep].contiguous(), **sk)
+    torch.cuda.synchronize()
+    check(torch.equal(got_m, got_p), f"{tag}: masked rows changed the compensated sharded sweep")
+    return res
+
+
+def phase_compensated(torch):
+    """The compensated builds (bf16 and fp32) of B1, B2 and B4 against their
+    twins for the five kinds, around the 128 x 128 tile (n, M in EDGE_NM, d
+    in EDGE_D, p = 1..5 one shape each in turn, u at fp32 or at the build's
+    type in turn: bf16 u gives B1 a bf16 output), B1 with its w partial and
+    carry in global memory (SWEEP_GLOBAL), and B1's and B2's plans for both
+    builds against their mirrors."""
+    from repro_torch.core.kernels import make_kernel
+    from repro_torch.kernels import kernel_matvec as km
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(2)
+
+    def randn(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+
+    total = 0
+    for name in COMP_DTYPES:
+        dt = getattr(torch, name)
+        cases, worst, i, worst_at = 0, 0.0, 0, ""
+        for kind, params in KINDS:
+            spec = make_kernel(kind, **params).spec
+            for d in EDGE_D:
+                for n in EDGE_NM:
+                    for M in EDGE_NM:
+                        p = COMP_WIDTHS[i % len(COMP_WIDTHS)]
+                        X, C = (randn(n, d) / d ** 0.5).to(dt), (randn(M, d) / d ** 0.5).to(dt)
+                        u = randn(M, p)
+                        u = u.to(dt) if i % 2 else u
+                        tag = f"{name} {kind} n,M,d={n},{M},{d} p={p} u {u.dtype}"
+                        res = check_compensated(torch, km, spec, X, C, u, randn(n, p).to(dt), tag)
+                        i += 1
+                        for check_name, (abs_err, ratio) in res.items():
+                            check(ratio <= 1.0, f"{check_name} {tag}: max abs err {abs_err:.3e} "
+                                  f"(ratio {ratio:.3f} of its bound)")
+                            if ratio > worst:
+                                worst, worst_at = ratio, f"{check_name}, {tag}"
+                        cases += len(res)
+        for kind, params in KINDS[:2]:
+            spec = make_kernel(kind, **params).spec
+            for n, M, d, p in SWEEP_GLOBAL:
+                check(not km.sweep_smem_bytes(M, p, d, True)[1],
+                      f"compensated sweep M={M} p={p} keeps its w partial in shared memory")
+                X, C = randn(n, d).to(dt), randn(M, d).to(dt)
+                u, v = randn(M, p), randn(n, p).to(dt)
+                res = {}
+                w = km.fused_sweep(X, C, u, v, spec=spec, compensated=True)
+                res["sweep"] = close_err(w, km.fused_sweep_plain(X, C, u, v, spec=spec,
+                                                                 compensated=True)[0])
+                again = torch.equal(w, km.fused_sweep(X, C, u, v, spec=spec, compensated=True))
+                check(again, f"compensated sweep {name} {kind} M={M} not deterministic")
+                abs_err, ratio = res["sweep"]
+                check(ratio <= 1.0, f"compensated sweep {name} {kind} n,M,d={n},{M},{d} p={p} "
+                      f"(w partial in global memory): max abs err {abs_err:.3e} (ratio {ratio:.3f})")
+                worst = max(worst, ratio)
+                cases += 1
+        torch.cuda.synchronize()
+        say(f"[compensated] {name} build: {cases} checks of B1, B2 and B4 against their "
+            f"compensated twins pass (five kinds; n, M in {EDGE_NM}; d in {EDGE_D}; p = 1..5; "
+            f"masked rows bit-equal to the prefix; B1's w partial and carry in global memory at "
+            f"{[(M, p) for _, M, _, p in SWEEP_GLOBAL]}); worst ratio {worst:.4f} ({worst_at})")
+        total += cases
+    dev_i = torch.cuda.current_device()
+    for variant in (1, 2):
+        for p in (1, 4):
+            for d in (18, 90):
+                smem, slots = km._matmul_slots(p, km.KIND_CODES["gaussian"], d, variant, dev_i)
+                check(smem == km.matmul_smem_bytes(p, d) and slots == km.matmul_grid_model(p, d),
+                      f"B2 build {km.VARIANT_NAMES[variant]} p={p} d={d}: smem {smem}, slots "
+                      f"{slots}, not its mirror's")
+        for M, d in ((10_000, 18), (50_000, 90)):
+            smem, in_smem = km.sweep_smem_bytes(M, 1, d, True)
+            grid = km._sweep_grid(1, km.KIND_CODES["gaussian"], smem, variant, dev_i)
+            model = km.sweep_grid_model(M, 1, d, True)
+            say(f"[compensated] B1 build {km.VARIANT_NAMES[variant]} at M={M} d={d}: shared "
+                f"memory {smem} B (w partial and carry there: {in_smem}), grid {grid} (model "
+                f"{model})")
+            check(model >= grid, "the planner's compensated grid model is below the card's")
+    say(f"[compensated] {total} checks pass; B2's plans equal their mirrors for both builds")
 
 
 def rel(a, b) -> float:
@@ -763,7 +949,8 @@ def phase_main(torch, args):
     say("[main] stage seconds: " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items() if isinstance(v, float))
         + f"; fit total {fit_s:.4f}; factor route {times['factor_path']}")
-    say(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[main] peak device memory {peak / 2**30:.3f} GiB")
     say(f"[main] kernel launches in the main path: {counts}")
     check(counts["fused_sweep"] == 47, f"sweep kernel launched {counts['fused_sweep']} times, not 47")
     check(counts["pairwise_kernel"] == 1, f"pairwise kernel launched {counts['pairwise_kernel']} times")
@@ -827,8 +1014,206 @@ def phase_main(torch, args):
     e = small_fit(args.seed, "cuda", task.lam)
     u = torch.randn(ms, generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
     sweep_witness(torch, km, e.kernel.spec, Xs, e.centers, u, f"n={ns} M={ms}")
-    return dict(X=X, Xt=Xt, centers=est.centers, alpha=est.alpha, spec=est.kernel.spec,
-                counts=counts, fit_s=fit_s)
+    return dict(X=X, y=y, Xt=Xt, yt=yt, centers=est.centers, alpha=est.alpha,
+                spec=est.kernel.spec, counts=counts, fit_s=fit_s, times=times, peak=peak,
+                err=err, pred=pred, task=task)
+
+
+def phase_bf16(torch, args, main) -> list[dict]:
+    """The bf16 policy at SUSY's shape: the compensated bf16 B1 sweep at the
+    fit's shape and B2 at predict's against float64 twins, on the same
+    bf16-quantized inputs (the kernels' own accumulation) and on the
+    unquantized ones (the policy's error), B1 bit-equal over two runs; then
+    the full-size fit with ``precision="bf16"`` on the fp32 fit's data and
+    generator seed, its stage times, device peak and test error beside the
+    fp32 fit's, and its launches. Returns the kernels line's rows."""
+    from repro_torch.core import FalkonConfig, falkon_fit
+    from repro_torch.kernels import kernel_matvec as km
+    bf = torch.bfloat16
+    X, Xt, C, alpha, spec = main["X"], main["Xt"], main["centers"], main["alpha"], main["spec"]
+    n, d = X.shape
+    M, m = C.shape[0], Xt.shape[0]
+    Xq, Cq, Xtq = X.to(bf), C.to(bf), Xt.to(bf)
+    u = torch.randn(M, generator=torch.Generator(device=DEVICE).manual_seed(11), device=DEVICE)
+    rows = []
+
+    sweep = lambda: km.fused_sweep(Xq, Cq, u, spec=spec, compensated=True)
+    w = sweep()
+    again = torch.equal(w, sweep())
+    w64q = km.fused_sweep_plain(Xq.double(), Cq.double(), u.double()[:, None], None,
+                                spec=spec)[0][:, 0]
+    w64 = km.fused_sweep_plain(X.double(), C.double(), u.double()[:, None], None,
+                               spec=spec)[0][:, 0]
+    S = km.fused_sweep_plain(Xq.float(), Cq.float(), u.abs()[:, None], None,
+                             spec=spec)[0][:, 0].double()
+    abs_err, ratio = close_err(w, w64q)
+    rs = float(((w.double() - w64q).abs() / (PRED_RTOL * S + 1e-12)).max())
+    pol = rel(w, w64)
+    say(f"[bf16] SUSY-shape sweep n={n} M={M} d={d}, bf16 compensated B1: against a float64 "
+        f"twin on the same bf16 inputs max abs err {abs_err:.4e} (ratio {ratio:.4f} of atol "
+        f"1e-4 + rtol 1e-4, bound 1; {rs:.4f} of {PRED_RTOL:g} x sum|terms|); the policy's "
+        f"error against float64 on the unquantized inputs {pol:.4e} (normwise; the reference "
+        f"documents <= {POLICY_BOUND:g}); two runs bit-equal: {again}")
+    check(ratio <= 1.0 and again, "bf16 B1 at the SUSY shape is off its float64 twin or not "
+          "deterministic")
+    breakdown(torch, f"B1 bf16 n={n} M={M} d={d}", sweep)
+    ms = time_cuda(torch, sweep, 5)
+    plain = time_cuda(torch, lambda: km.fused_sweep_plain(Xq, Cq, u[:, None], None, spec=spec,
+                                                          compensated=True, block_rows=65_536),
+                      1, warm=False)
+    b, by = bound(n * M * (2 * d + 10 + 4), 2 * (n * d + M * d) + 4 * 2 * M)
+    say(f"[bf16] B1 bf16 at the SUSY shape: kernel {ms:.4f} ms, compensated twin {plain:.4f} ms, "
+        f"bound {b:.4f} ms ({by})")
+    rows.append(dict(name="fused_sweep_bf16c", base="fused_sweep", ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, max_abs_err=abs_err,
+                     shape=f"n={n} M={M} d={d} p=1 bf16"))
+    del w64, w64q
+
+    predict = lambda: km.kernel_matmul(Xtq, Cq, alpha, spec=spec, compensated=True)
+    out = predict().double()
+    again = torch.equal(out, predict().double())
+    ref64 = km.kernel_matmul_plain(Xtq.double(), Cq.double(), alpha.double()[:, None],
+                                   spec=spec)[:, 0]
+    Sp = float(km.kernel_matmul_plain(Xtq, Cq, alpha.abs()[:, None], spec=spec).max())
+    err64 = float((out - ref64).abs().max())
+    say(f"[bf16] predict-shape kernel matmul m={m} n={M}, bf16 compensated B2: max abs err "
+        f"{err64:.4e} against a float64 twin on the same bf16 inputs (limit {PRED_RTOL:g} x max "
+        f"sum|terms| {Sp:.4e} = {PRED_RTOL * Sp:.4e}); two runs bit-equal: {again}")
+    check(err64 <= PRED_RTOL * Sp and again, "bf16 B2 at the predict shape is off its float64 "
+          "twin or not deterministic")
+    breakdown(torch, f"B2 bf16 m={m} n={M} d={d}", predict)
+    ms = time_cuda(torch, predict, 10)
+    plain = time_cuda(torch, lambda: km.kernel_matmul_plain(Xtq, Cq, alpha[:, None], spec=spec,
+                                                            compensated=True), 1, warm=False)
+    b, by = bound(m * M * (2 * d + 10 + 2), 2 * (m * d + M * d) + 4 * (M + m))
+    say(f"[bf16] B2 bf16 at the predict shape: kernel {ms:.4f} ms, compensated twin {plain:.4f} "
+        f"ms, bound {b:.4f} ms ({by})")
+    rows.append(dict(name="kernel_matmul_bf16c", base="kernel_matmul", ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, max_abs_err=err64,
+                     shape=f"m={m} n={M} d={d} p=1 bf16"))
+    del Xq, Cq, Xtq, out, ref64
+
+    # the fit, on the fp32 fit's data and seed
+    config = susy_config(FalkonConfig, main["task"], precision="bf16")
+    km.reset_launch_counts()
+    times: dict = {}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    est, state = falkon_fit(args.seed, X, main["y"], config, stage_times=times)
+    t1 = time.perf_counter()
+    pred = est.predict(Xt)
+    torch.cuda.synchronize()
+    times["predict"] = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    counts, variants = km.launch_counts(), km.variant_launch_counts()
+    fit_s = t1 - t0
+    ft = main["times"]
+    say("[bf16] stage seconds, bf16 fit [fp32 fit]: " + ", ".join(
+        f"{k} {v:.4f} [{ft[k]:.4f}]" for k, v in times.items() if isinstance(v, float))
+        + f"; fit total {fit_s:.4f} [{main['fit_s']:.4f}]")
+    say(f"[bf16] peak device memory {peak / 2**30:.3f} GiB [fp32 fit: {main['peak'] / 2**30:.3f} "
+        f"GiB]; {before / 2**30:.3f} GiB was allocated before the fit (the fp32 data); X on the "
+        f"card {X.numel() * 2 / 2**20:.1f} MiB in bf16, {X.numel() * 4 / 2**20:.1f} MiB in fp32")
+    say(f"[bf16] kernel launches in the bf16 fit: {counts}; by build: "
+        + ", ".join(f"{k} {v}" for k, v in variants.items() if v))
+    check(variants["fused_sweep_bf16c"] == 47 and counts["fused_sweep"] == 47,
+          f"the bf16 fit's sweeps did not all run the bf16 build: {variants}")
+    check(variants["kernel_matmul_bf16c"] >= 1 and counts["pairwise_kernel"] == 1,
+          f"the bf16 fit's predict or gram did not launch: {counts} {variants}")
+    check(state.beta.dtype == bf, f"CG iterates stored as {state.beta.dtype}, not bf16")
+    res = state.residual_norms.cpu()
+    check(bool(torch.isfinite(state.alpha).all() and torch.isfinite(pred).all()),
+          "non-finite alpha or predictions in the bf16 fit")
+    check(bool(torch.isfinite(res).all()) and float(res[-1]) < float(res[0]),
+          "the bf16 fit's CG residual did not decrease")
+    err = float((torch.sign(pred) != main["yt"]).float().mean())
+    say("[bf16] residual norms: " + " ".join(f"{float(r):.4e}" for r in res))
+    say(f"[bf16] cond_estimate {float(state.cond_estimate):.6g}; test error {err:.6f} [fp32 fit: "
+        f"{main['err']:.6f}]; predictions' distance from the fp32 fit's {rel(pred, main['pred']):.4e}")
+    check(err < 0.4, f"bf16 fit test error {err} no better than chance")
+    for r in rows:
+        r["launches"] = variants[r["name"]]
+    return rows
+
+
+def msd_bf16_sweep(torch, msd) -> dict:
+    """One bf16 sweep at the MillionSongs shape on the policy's B4 route
+    (``REPRO_SWEEP_BUDGET_MB`` forces it off B1: t spilled in bf16, w fp32)
+    against a float64 twin on the same bf16 inputs, timed; B1's bf16 build
+    (its w partial and carry in global memory) at the same shape against
+    the same twin. Returns the kernels line's B4 row."""
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.ops import SweepPlanWarning, get_ops
+    bf = torch.bfloat16
+    X, C, spec = msd["X"], msd["centers"], msd["spec"]
+    n, d = X.shape
+    M = C.shape[0]
+    Xq, Cq = X.to(bf), C.to(bf)
+    u = torch.randn(M, generator=torch.Generator(device=DEVICE).manual_seed(12), device=DEVICE)
+    ops = get_ops("cuda", msd["kernel"], precision="bf16")
+    old = os.environ.get("REPRO_SWEEP_BUDGET_MB")
+    os.environ["REPRO_SWEEP_BUDGET_MB"] = str(MSD_SHARD_BUDGET_MB)
+    try:
+        plan = ops.plan(n, M, d)
+        check(plan.path == "j_sharded" and plan.compensated and plan.vector_dtype == "bfloat16",
+              f"forced bf16 plan {plan}")
+        sweep = lambda: ops.sweep(Xq, Cq, u)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", SweepPlanWarning)
+            km.reset_launch_counts()
+            w = sweep()
+            torch.cuda.synchronize()
+            variants = km.variant_launch_counts()
+            again = torch.equal(w, sweep())
+            ms = time_cuda(torch, sweep, 3)
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_SWEEP_BUDGET_MB")
+        else:
+            os.environ["REPRO_SWEEP_BUDGET_MB"] = old
+    shards = -(-M // plan.shard_m)
+    chunks = -(-n // km.SHARD_ROW_CHUNK)
+    say(f"[bf16] MillionSongs-shape sweep n={n} M={M} d={d} on B4 ({plan.path}, {shards} shards "
+        f"of {plan.shard_m}, t {plan.vector_dtype}, w {plan.coeffs_dtype}): launches by build "
+        + ", ".join(f"{k} {v}" for k, v in variants.items() if v))
+    check(variants["sharded_sweep_bf16c"] == 1
+          and variants["kernel_matmul_bf16c"] == 1 + shards * chunks
+          and sum(variants.values()) == 2 + shards * chunks,
+          f"the forced bf16 sweep's launches {variants}")
+    fused = lambda: km.fused_sweep(Xq, Cq, u, spec=spec, compensated=True)
+    w1 = fused()
+    w64q = km.fused_sweep_plain(Xq.double(), Cq.double(), u.double()[:, None], None,
+                                spec=spec)[0][:, 0]
+    S = km.fused_sweep_plain(Xq.float(), Cq.float(), u.abs()[:, None], None,
+                             spec=spec)[0][:, 0].double()
+    w64 = km.fused_sweep_plain(X.double(), C.double(), u.double()[:, None], None,
+                               spec=spec)[0][:, 0]
+    # t's rounding to bf16 (half a unit, at most 2^-8 |t_i|) moves w_j by at
+    # most 2^-8 sum_i K_ij |t_i| <= 2^-8 S_j (K >= 0); each fp32 sum adds
+    # PRED_RTOL S_j
+    lim4 = (BF16_RTOL / 2 + 2 * PRED_RTOL) * S + 1e-12
+    r4 = float(((w.double() - w64q).abs() / lim4).max())
+    r1 = float(((w1.double() - w64q).abs() / (PRED_RTOL * S + 1e-12)).max())
+    e4 = float((w.double() - w64q).abs().max())
+    say(f"[bf16] against a float64 twin on the same bf16 inputs: B4 max abs err {e4:.4e}, "
+        f"{r4:.4f} of (2^-8 + {2 * PRED_RTOL:g}) x sum|terms| (t's bf16 rounding; bound 1); B1 "
+        f"bf16 {float((w1.double() - w64q).abs().max()):.4e}, {r1:.4f} of {PRED_RTOL:g} x "
+        f"sum|terms|; the policy's error against float64 on the unquantized inputs: B4 "
+        f"{rel(w, w64):.4e}, B1 {rel(w1, w64):.4e}; B4 two runs bit-equal: {again}")
+    check(r4 <= 1.0 and r1 <= 1.0 and again, "a bf16 MillionSongs sweep is off its float64 "
+          "twin or B4 is not deterministic")
+    ms1 = time_cuda(torch, fused, 3)
+    plain = time_cuda(torch, lambda: km.sharded_sweep_plain(
+        Xq, Cq, u[:, None], spec=spec, shard_m=plan.shard_m, compensated=True, t_dtype=bf,
+        out_dtype=torch.float32), 1, warm=False)
+    b, by = bound(n * M * (2 * d + 10 + 4), 2 * (n * d + M * d) + 4 * 2 * M)
+    say(f"[bf16] MillionSongs-shape sweep: B4 bf16 {ms:.4f} ms, B1 bf16 {ms1:.4f} ms, "
+        f"compensated B4 twin {plain:.4f} ms, bound {b:.4f} ms ({by})")
+    return dict(name="sharded_sweep_bf16c", base="sharded_sweep", ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, max_abs_err=e4, launches=variants["sharded_sweep_bf16c"],
+                shape=f"n={n} M={M} d={d} p=1 shard_m={plan.shard_m} bf16")
 
 
 def sweep_witness(torch, km, spec, X, C, u, tag: str, kernels=None):
@@ -906,7 +1291,7 @@ def phase_msd(torch, args):
     # the planner models B1's grid without a card; the launch queries it
     for dd, mm in ((d, M), (18, 10_000)):   # this fit's sweep and the SUSY one
         smem, _ = km.sweep_smem_bytes(mm, 1, dd)
-        grid_q = km._sweep_grid(km._pad_p(1), km.KIND_CODES["gaussian"], smem,
+        grid_q = km._sweep_grid(km._pad_p(1), km.KIND_CODES["gaussian"], smem, 0,
                                 torch.cuda.current_device())
         model = km.sweep_grid_model(mm, 1, dd)
         say(f"[msd] B1 grid at M={mm} d={dd}: planner's model {model}, occupancy query {grid_q}")
@@ -1028,7 +1413,7 @@ def phase_msd(torch, args):
 
     for ns, ds, ms in SMALL_BLOCKED:
         small_blocked_fit(torch, args.seed, ns, ds, ms)
-    return dict(X=X, centers=est.centers, spec=est.kernel.spec, counts=counts,
+    return dict(X=X, centers=est.centers, spec=est.kernel.spec, kernel=est.kernel, counts=counts,
                 jcounts=jcounts, shard_m=jplan.shard_m, plan=plan, fit_s=fit_s,
                 factor_s=times["factor"], T=state.precond.T, A=state.precond.A,
                 lam=task.lam)
@@ -1072,10 +1457,12 @@ def small_blocked_fit(torch, seed: int, n: int, d: int, M: int) -> None:
     check(rp <= BLOCKED_FIT_TOL and rb <= 2 * ri, f"forced-blocked fit M={M} disagrees")
 
 
-def time_cuda(torch, fn, reps: int) -> float:
+def time_cuda(torch, fn, reps: int, warm: bool = True) -> float:
     """Median milliseconds of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up call."""
-    fn()
+    after one warm-up call (``warm``; a twin that takes seconds goes
+    without)."""
+    if warm:
+        fn()
     out = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -1093,7 +1480,7 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_times(torch, main, msd) -> list[dict]:
+def phase_times(torch, main, msd, bf16_rows) -> list[dict]:
     from repro_torch.kernels import kernel_matvec as km
     X, Xt, Cc, alpha, spec = main["X"], main["Xt"], main["centers"], main["alpha"], main["spec"]
     n, d = X.shape
@@ -1161,16 +1548,19 @@ def phase_times(torch, main, msd) -> list[dict]:
     counts = {**main["counts"], **{k: msd["counts"][k] for k in
                                    ("potrf_tile", "trsm_panel", "trailing_update")},
               "sharded_sweep": msd["jcounts"]["sharded_sweep"]}
+    for r in bf16_rows:   # launches from the bf16 fit and the forced bf16 sweep
+        counts[r["name"]] = r["launches"]
     kernels = []
-    for r in rows:
+    for r in rows + bf16_rows:
         lib = r.get("library_ms")
-        say(f"[times] {r['name']:15s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        base = r.get("base", r["name"])
+        say(f"[times] {r['name']:19s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"launches per fit {counts[r['name']]}, library "
+            f"launches per run {counts[r['name']]}, library "
             + ("none" if lib is None else f"{lib:.4f} ms ({r['library']})"))
         kernels.append({
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
-            "replaces": REPLACES[r["name"]], "launches": counts[r["name"]],
+            "replaces": REPLACES[base], "launches": counts[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": lib,
         })
@@ -1314,7 +1704,7 @@ def matmul_transposed(torch, km, X, C, spec, shard: int) -> None:
     got = mm()
     abs_err, ratio = close_err(got, km.kernel_matmul_plain(Cj, Xr, t, w, spec=spec))
     again = torch.equal(got, mm())
-    S = km._lib().rt_matmul_slices(m, n, km._matmul_slots(1, km.KIND_CODES[spec.kind], d,
+    S = km._lib().rt_matmul_slices(m, n, km._matmul_slots(1, km.KIND_CODES[spec.kind], d, 0,
                                                           torch.cuda.current_device())[1])
     say(f"[times] B2 at B4's transposed shape m={m} n={n} d={d} ({S} slices): vs twin "
         f"{abs_err:.3e} (ratio {ratio:.4f}); two runs bit-equal: {again}")
@@ -1332,17 +1722,26 @@ def breakdown(torch, tag: str, fn, each: bool = False) -> None:
     """One call's device operations, by name, with their summed device time
     (``torch.profiler``): a blocked schedule's launches; ``each`` also lists
     every launch's time in launch order. The profiler has returned no
-    device operation for a call (B3 at MillionSongs' K_MM) and dropped a
-    call's first one at times, so an empty profile is taken again, up to
-    three times in all."""
-    from torch.profiler import ProfilerActivity, profile
+    device operation for a whole call (B3 at MillionSongs' K_MM; B2 at the
+    predict shape) and dropped a call's first one at times, so each profile
+    records one call after a warm-up step of its own (a ``schedule`` of one
+    warm-up and one active step), and an empty profile is taken again, up
+    to five times in all."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(5):
+        held: dict = {}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: held.update(events=list(p.events()))) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in held.get("events", [])   # not the step's own span
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")]
         if events:
             break
     ops: dict[str, list] = {}
@@ -1447,15 +1846,19 @@ def main(argv=None) -> int:
     card = phase_device(torch)
     build_s = phase_build()
     phase_kernels(torch)
+    phase_compensated(torch)
     phase_blocked(torch)
     if args.checks_only:
         say(f"[done] checks only, {time.perf_counter() - t_start:.1f} s")
         return 0
     main_res = phase_main(torch, args)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the SUSY phase")
+    bf16_rows = phase_bf16(torch, args, main_res)
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the bf16 SUSY phase")
     msd_res = phase_msd(torch, args)
+    bf16_rows.append(msd_bf16_sweep(torch, msd_res))
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the MillionSongs phase")
-    kernels = phase_times(torch, main_res, msd_res)
+    kernels = phase_times(torch, main_res, msd_res, bf16_rows)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, {build_s:.1f} s of it the build")
     say(f"card: {card}")
     say(json.dumps({"kernels": kernels}))

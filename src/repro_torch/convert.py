@@ -22,9 +22,10 @@ def _tensor(a, device, dtype=None):
                                                   device=device)
 
 
-def preconditioner_from_numpy(d: Mapping, *, device: str = "cpu") -> Preconditioner:
+def preconditioner_from_numpy(d: Mapping, *, device: str = "cuda") -> Preconditioner:
     """A port ``Preconditioner`` from ``{"T", "A", "Q", "D", "n", "diag_T"}``
-    (``Q``, ``D`` and ``diag_T`` optional)."""
+    (``Q``, ``D`` and ``diag_T`` optional), on ``device`` (the card unless
+    the caller asks for the CPU; without a card the default raises)."""
     dev = resolve_device(device)
     T = _tensor(d["T"], dev)
     return Preconditioner(
@@ -34,13 +35,15 @@ def preconditioner_from_numpy(d: Mapping, *, device: str = "cpu") -> Preconditio
 
 
 def estimator_from_numpy(d: Mapping, spec, *, precond: Mapping | None = None,
-                         lam: float | None = None, ops_impl: str = "torch",
-                         device: str = "cpu", block_size: int = 2048,
+                         lam: float | None = None, ops_impl: str = "cuda",
+                         device: str = "cuda", block_size: int = 2048,
                          precision: str = "fp32") -> FalkonEstimator:
     """A port ``FalkonEstimator`` from ``{"centers", "alpha"}`` and the kernel
     spec, given as a ``KernelSpec`` or a ``(kind, params)`` pair with params
     a dict or a tuple of (name, value) pairs. ``precond`` is a dict for
-    :func:`preconditioner_from_numpy`."""
+    :func:`preconditioner_from_numpy`. Like every entry point of the port it
+    runs on the card on the ``"cuda"`` backend unless asked otherwise;
+    without a card the default ``device`` raises."""
     if not isinstance(spec, KernelSpec):
         kind, params = spec
         params = dict(params)

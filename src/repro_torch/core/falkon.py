@@ -9,12 +9,17 @@ on ``FalkonConfig.device`` (default ``"cuda"``); on a machine without a
 card that default raises rather than dropping to the CPU — pass
 ``device="cpu"`` to run there.
 
+``FalkonConfig(precision="bf16")`` runs the reference's end-to-end policy:
+X, the centers the sweeps read, y and the CG iterates stored bfloat16 (X
+quantized once per solve), every sweep accumulated in float32 with Kahan
+carries, and K_MM, the factors and the coefficients float32.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP.md item: the bf16 policy (A7), leverage-score centers and the
-lam-path fit (A6), the K_nM cache (A11), a mesh (A14), streaming fits
-(A8) and mini-batch fits (A12). A large M routes the factor to the blocked
-out-of-core Cholesky and the sweep off the fused route, as planned by
-``plan_factor`` and ``plan_sweep``.
+ROADMAP.md item: storage types other than float32 and bfloat16 (A7),
+leverage-score centers and the lam-path fit (A6), the K_nM cache (A11), a
+mesh (A14), streaming fits (A8) and mini-batch fits (A12). A large M
+routes the factor to the blocked out-of-core Cholesky and the sweep off
+the fused route, as planned by ``plan_factor`` and ``plan_sweep``.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import torch
 
 from repro_torch.kernels.blocked_cholesky import FactorStats
 from repro_torch.ops import KernelOps, available_ops, get_ops, plan_factor, resolve_precision
-from repro_torch.ops.base import require_fp32_policy
+from repro_torch.ops.base import require_supported_policy
 
 from .cg import conjugate_gradient
 from .kernels import KernelFn, make_kernel
@@ -64,7 +69,7 @@ class FalkonConfig:
     jitter: float | None = None
     rank_deficient: bool = False
     ops_impl: str = "cuda"                 # KernelOps backend: "cuda" | "torch"
-    precision: str = "fp32"                # "fp32" ("bf16": A7)
+    precision: str = "fp32"                # "fp32" | "bf16" (end-to-end bf16 storage)
     tol: float = 0.0
     dtype: str = "float32"
     estimate_cond: bool = True             # power-iteration cond(W) diagnostic
@@ -78,7 +83,7 @@ class FalkonConfig:
             raise ValueError(
                 f"unknown ops_impl {self.ops_impl!r}; registered KernelOps "
                 f"backends: {available_ops()}")
-        require_fp32_policy(resolve_precision(self.precision))   # A7
+        require_supported_policy(resolve_precision(self.precision))   # A7
         if self.knm_cache not in KNM_CACHE_MODES:
             raise ValueError(f"unknown knm_cache {self.knm_cache!r}; "
                              f"supported: {KNM_CACHE_MODES}")
@@ -159,11 +164,22 @@ def _falkon_operator(matvec: Callable, precond: Preconditioner, lam,
     """W(u) = B^T H B u via Alg. 1's nested-solve composition:
     W u = left(K_nM^T (K_nM gamma) / n) + lam-ridge(u), gamma = right(u)."""
     def W(u: Tensor) -> Tensor:
+        u = u.to(precond.T.dtype)                 # a bf16 CG iterate, widened
         gamma = precond.right(u)
         w = matvec(gamma) / n                     # K_nM^T K_nM gamma / n
         return precond.left(w) + precond.ridge(u, lam)
 
     return W
+
+
+def _cg_storage(ops: KernelOps) -> torch.dtype | None:
+    """The CG iterates' storage type under the backend's policy: None (full
+    precision) under float32 storage, else the storage type (x/r/p bf16,
+    every scalar float32). The reference's ``_cg_storage``."""
+    pol = getattr(ops, "policy", None)
+    if pol is None or pol.storage == "float32":
+        return None
+    return getattr(torch, pol.storage)
 
 
 def falkon_solve(X: Tensor, y: Tensor, centers: Tensor, precond: Preconditioner,
@@ -174,22 +190,29 @@ def falkon_solve(X: Tensor, y: Tensor, centers: Tensor, precond: Preconditioner,
 
     One right-hand-side sweep, t CG sweeps and, with ``estimate_cond``, the
     power iteration's 2 x (12 + 1) = 26 width-1 sweeps: 47 sweeps at t = 20.
+    Under a reduced-storage policy X, the centers and y are quantized to
+    storage once here, so that no sweep casts them again, and the CG
+    iterates are stored at that width (``beta`` comes back at it).
     """
     n = X.shape[0]
     if ops is None:
         ops = get_ops(ops_impl, kernel, block_size=block_size, precision=precision)
+    dt = precond.T.dtype   # the solve's type: K_MM's, the coefficients'
+    storage = _cg_storage(ops)
+    Xs, Cs, ys = X, centers, y
+    if storage is not None:
+        Xs, Cs, ys = (a.to(storage).contiguous() for a in (X, centers, y))
 
     def matvec(g):
-        return ops.sweep(X, centers, g, None)
+        return ops.sweep(Xs, Cs, g, None)
 
     W = _falkon_operator(matvec, precond, lam, n)
-    zeros = torch.zeros((centers.shape[0],) + tuple(y.shape[1:]), dtype=X.dtype,
-                        device=X.device)
-    b = precond.left(ops.sweep(X, centers, zeros, y) / n)   # r = B^T z / n (Alg. 1)
-    cg = conjugate_gradient(W, b, t, tol=tol)
-    alpha = precond.coeffs(cg.x)
+    zeros = torch.zeros((centers.shape[0],) + tuple(y.shape[1:]), dtype=dt, device=X.device)
+    b = precond.left(ops.sweep(Xs, Cs, zeros, ys) / n)   # r = B^T z / n (Alg. 1)
+    cg = conjugate_gradient(W, b, t, tol=tol, storage_dtype=storage)
+    alpha = precond.coeffs(cg.x.to(dt))
 
-    cond = torch.zeros((), dtype=X.dtype, device=X.device)
+    cond = torch.zeros((), dtype=dt, device=X.device)
     if estimate_cond:
         # power iteration on W, then on lam_max I - W, for cond(W) (Thm 2)
         q = precond.q
@@ -274,8 +297,10 @@ def falkon_fit(generator: torch.Generator | int, X, y, config: FalkonConfig, *,
 
     ``generator`` draws the centers (an int seeds a new generator on
     ``config.device``). X and y (tensors or numpy arrays) are moved to
-    ``config.device`` at ``config.dtype``. ``ops`` replaces the configured
-    backend (e.g. a ``CountingOps``). ``stage_times``, when given, receives
+    ``config.device`` at ``config.dtype``; under ``precision="bf16"`` they
+    are quantized to bfloat16 once the centers are drawn. ``ops`` replaces
+    the configured backend (e.g. a ``CountingOps``). ``stage_times``, when
+    given, receives
     the synchronised wall time of each stage: centers, gram, factor, solve,
     and the factor plan's ``factor_path`` and ``factor_block`` with the
     blocked path's ``factor_stats``.
@@ -293,6 +318,11 @@ def falkon_fit(generator: torch.Generator | int, X, y, config: FalkonConfig, *,
 
     with _timed(stage_times, "centers", device):
         sel = _stage_select(generator, X, config)
+    storage = _cg_storage(ops)
+    if storage is not None:
+        # the centers come from the full-precision X (K_MM stays float32);
+        # the sweeps read X and y at storage width, quantized once
+        X, y = X.to(storage), y.to(storage)
     with _timed(stage_times, "gram", device):
         KMM = _stage_gram(ops, sel.centers)
     with _timed(stage_times, "factor", device):

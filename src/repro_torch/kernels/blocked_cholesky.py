@@ -48,6 +48,8 @@ import torch
 from .kernel_matvec import _check_operands, _ptr, _route, _stream
 
 Tensor = torch.Tensor
+#: the tile kernels' one type: the policy keeps the factors float32
+FP32 = (torch.float32,)
 
 TILE_IMPLS = ("auto", "torch", "cuda")
 
@@ -242,7 +244,7 @@ def potrf_tile(A: Tensor) -> Tensor:
         raise ValueError(f"potrf_tile: expected a square tile, got {tuple(A.shape)}")
     if _route("potrf_tile", A) == "cpu":
         return potrf_plain(A)
-    _check_operands("potrf_tile", A.device, A=A)
+    _check_operands("potrf_tile", A.device, types=FP32, A=A)
     L = torch.empty_like(A)
     with torch.cuda.device(A.device):
         code = _lib().rb_potrf(_ptr(A), _ptr(L), A.shape[0], _stream(A.device))
@@ -286,7 +288,7 @@ def trsm_panel(L: Tensor, A: Tensor) -> Tensor:
         raise ValueError(f"trsm_panel: L {tuple(L.shape)} does not match A {tuple(A.shape)}")
     if _route("trsm_panel", L, A) == "cpu":
         return trsm_plain(L, A)
-    _check_operands("trsm_panel", A.device, L=L, A=A)
+    _check_operands("trsm_panel", A.device, types=FP32, L=L, A=A)
     X = torch.empty_like(A)
     with torch.cuda.device(A.device):
         code = _lib().rb_trsm(_ptr(L), _ptr(A), _ptr(X), r, b, _stream(A.device))
@@ -315,7 +317,8 @@ def trailing_update(C: Tensor, P: Tensor, Q: Tensor, *, out: Tensor | None = Non
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty_like(C)
-    _check_operands("trailing_update", C.device, C=C, P=P, Q=Q, out=out)
+    _check_operands("trailing_update", C.device, types=FP32, C=C, P=P, Q=Q,
+                    out=out)
     with torch.cuda.device(C.device):
         # row strides of C and out, P, Q (contiguous), and lower = 0: the whole tile
         code = _lib().rb_update(_ptr(C), _ptr(P), _ptr(Q), _ptr(out), r, b, k, b, k, k, 0,

@@ -27,7 +27,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("kernel_matvec.cu", "blocked_cholesky.cu")
+#: kernel_matvec.cu holds the fp32 B1/B2, B3 and the entry points; the
+#: compensated B1/B2 builds compile beside it, each in its own nvcc
+SOURCES = ("kernel_matvec.cu", "kernel_matvec_f32c.cu", "kernel_matvec_bf16c.cu",
+           "blocked_cholesky.cu")
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -40,14 +43,14 @@ _F = ctypes.c_float
 #: ``rt_matmul_slices`` (a count) and ``rt_pairwise_range`` (0)
 _SIGNATURES = {
     # kernel_matvec.cu: B1-B3
-    "rt_sweep_grid": [_I, _I, _I, ctypes.POINTER(_I)],
-    "rt_fused_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "rt_sweep_grid": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    "rt_fused_sweep": [_I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I,
                        _I, _F, _F, _F, _F, _I,
-                       _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "rt_matmul_slots": [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+                       _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    "rt_matmul_slots": [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "rt_matmul_slices": [_I, _I, _I],
-    "rt_kernel_matmul": [_P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P],
+    "rt_kernel_matmul": [_I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                         _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _I, _P],
     "rt_pairwise_slots": [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "rt_pairwise_range": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
     "rt_pairwise": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P],

@@ -33,8 +33,16 @@ alone, stored: a persistent grid splits the output tiles into balanced
 contiguous ranges (:func:`pairwise_range`), and K(C, C) of one tensor takes
 a symmetric route that evaluates the upper triangle of tiles and stores each
 off-diagonal tile twice (:func:`pairwise_symmetric`).
-Only fp32 inputs are taken: bf16 storage and Kahan compensation are
-ROADMAP.md A7.
+
+B1, B2 and B4 also run the reference's reduced-precision, compensated form
+(``compensated=True``): bf16 or fp32 X, C, u and v, widened to fp32 as each
+kernel loads them (a bf16 x bf16 product is exact in fp32), a Kahan/two-sum
+carry beside each accumulator (:func:`two_sum`), and a bf16 or fp32 output.
+The kernels are built in three variants (:data:`VARIANTS`): fp32 plain,
+fp32 compensated and bf16 compensated; bf16 X without compensation runs the
+fp32 plain kernel on an fp32 copy of X (exact). B3 takes fp32 only (the
+policy keeps ``gram`` fp32). Other types (float16, fp8, and float64 on the
+card) are refused, naming ROADMAP.md A7.
 """
 from __future__ import annotations
 
@@ -68,8 +76,17 @@ W_SMEM_LIMIT = 100 * 1024
 #: kernel kind -> the code of csrc/tile.cuh ``Kind``
 KIND_CODES = {"gaussian": 0, "laplacian": 1, "matern32": 2, "linear": 3, "polynomial": 4}
 
-#: roadmap item of the reduced-precision path
-_A7 = "ROADMAP.md item A7 (bf16 policy)"
+#: the storage types the kernels take beside the fp32 the twins compute in
+#: (csrc ``DT_*`` codes): X, C, u, v and the output of B1, B2 and B4
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels' builds for (X's type, compensated) (csrc ``variant`` codes);
+#: bf16 X without compensation runs variant 0 on an fp32 copy of X
+VARIANTS = {(torch.float32, False): 0, (torch.float32, True): 1,
+            (torch.bfloat16, True): 2}
+#: the builds' names, by code (csrc kernel_matvec.cu, _f32c.cu, _bf16c.cu)
+VARIANT_NAMES = ("f32", "f32c", "bf16c")
+#: the roadmap item that names the types the port does not run
+_A7 = "ROADMAP.md item A7"
 
 
 def sweep_block_dims(n: int, M: int) -> tuple[int, int]:
@@ -111,19 +128,20 @@ def _group(t: Tensor | None, g: slice, p: int) -> Tensor | None:
     return t[:, g].contiguous()
 
 
-def sweep_smem_bytes(M: int, p: int, d: int) -> tuple[int, bool]:
+def sweep_smem_bytes(M: int, p: int, d: int, compensated: bool = False) -> tuple[int, bool]:
     """Dynamic shared memory of one sweep block and whether its w partial
     lives there (else in a per-block slice of global scratch). Mirrors
-    ``sweep_smem_floats`` of csrc/kernel_matvec.cu: the C ring (2 chunks of
+    ``sweep_smem_floats`` of csrc/sweep.cuh: the C ring (2 chunks of
     min(d, 32) k-rows), the extras ring (||c||^2 and u of 2 tiles), the X
     block (min(d, 128) k-rows, padded), t, the cross-warp reduction buffer,
-    the row norms and, when it fits, the w partial."""
+    the row norms and, when it fits, the w partial (and, ``compensated``,
+    its Kahan carry of the same size: :data:`W_SMEM_LIMIT_COMP`)."""
     P = _pad_p(p)
     cr, xr = min(d, SWEEP_KC), min(d, SWEEP_XK)
     base = 4 * (2 * cr * SWEEP_BN + 2 * (1 + P) * SWEEP_BN + xr * SWEEP_LDX
                 + P * SWEEP_BM + 4 * P * SWEEP_BN + SWEEP_BM)
-    with_w = base + 4 * M * P
-    if with_w <= W_SMEM_LIMIT:
+    with_w = base + 4 * M * P * (2 if compensated else 1)
+    if with_w <= (W_SMEM_LIMIT_COMP if compensated else W_SMEM_LIMIT):
         return with_w, True
     return base, False
 
@@ -134,14 +152,17 @@ SMS = 132
 SM_THREADS = 2048
 SM_SMEM = 233_472
 BLOCK_SMEM_RESERVED = 1024
+#: the compensated sweep keeps its w partial and carry in shared memory up
+#: to the most that still fits two blocks on an SM (SUSY's M = 10^4 at p = 1)
+W_SMEM_LIMIT_COMP = SM_SMEM // 2 - BLOCK_SMEM_RESERVED
 
 
-def sweep_grid_model(M: int, p: int, d: int) -> int:
+def sweep_grid_model(M: int, p: int, d: int, compensated: bool = False) -> int:
     """Persistent sweep blocks the planner charges for: SMs x the blocks one
     SM can hold by threads and shared memory. The launch queries the card's
     occupancy instead, which registers can only lower, so the model bounds
     the grid, and the w-partial workspace, from above."""
-    smem, _ = sweep_smem_bytes(M, p, d)
+    smem, _ = sweep_smem_bytes(M, p, d, compensated)
     per_sm = min(SM_THREADS // NT, SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
     return SMS * max(per_sm, 1)
 
@@ -219,26 +240,30 @@ def _check(code: int, what: str) -> None:
 
 
 @functools.cache
-def _sweep_grid(P: int, kind: int, smem: int, device_index: int) -> int:
+def _sweep_grid(P: int, kind: int, smem: int, variant: int, device_index: int) -> int:
     """Persistent sweep grid: resident blocks per SM x SMs of B1's
-    instantiation for (P, kernel kind code) (the caller holds the device
-    context of ``device_index``)."""
+    instantiation for (P, kernel kind code, variant) (the caller holds the
+    device context of ``device_index``)."""
     grid = ctypes.c_int(0)
-    _check(_lib().rt_sweep_grid(P, kind, smem, ctypes.byref(grid)), "sweep grid query")
+    _check(_lib().rt_sweep_grid(P, kind, smem, variant, ctypes.byref(grid)),
+           "sweep grid query")
     return grid.value
 
 
-def _check_operands(what: str, device: torch.device, **tensors) -> None:
-    """The kernels take contiguous fp32 tensors on one CUDA device."""
+def _check_operands(what: str, device: torch.device, *,
+                    types: tuple = tuple(DTYPE_CODES), **tensors) -> None:
+    """The kernels take contiguous tensors on one CUDA device, of ``types``:
+    float32 or bfloat16 for B1, B2 and B4; float32 alone for B3 and B5-B7."""
     for name, t in tensors.items():
         if t is None:
             continue
         if t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
+        if t.dtype not in types:
+            names = " or ".join(str(dt).removeprefix("torch.") for dt in types)
             raise NotImplementedError(
-                f"{what}: {name} is {t.dtype}; the CUDA kernels take float32 "
-                f"only — reduced and double precision are {_A7}")
+                f"{what}: {name} is {t.dtype}; this CUDA kernel takes {names} — "
+                f"other types are not ported ({_A7})")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
 
@@ -262,38 +287,121 @@ def _route(what: str, *tensors: Tensor) -> str:
     return kind
 
 
+def _check_out_dtype(what: str, dt: torch.dtype, card: bool = False) -> None:
+    """Outputs are float32 or bfloat16 (float64 too from a CPU twin)."""
+    if dt not in DTYPE_CODES and (card or dt != torch.float64):
+        raise NotImplementedError(f"{what}: output type {dt} is not ported ({_A7})")
+
+
+def _code(t: Tensor | None) -> int:
+    return 0 if t is None else DTYPE_CODES[t.dtype]
+
+
+def _wide(t: Tensor | None) -> Tensor | None:
+    """A twin's operand at fp32 or wider: the kernels widen as they load (the
+    reference's ``_tile``), so a bf16 twin never computes in bf16."""
+    return t if t is None or t.dtype.itemsize >= 4 else t.float()
+
+
+def _variant(what: str, X: Tensor, compensated: bool) -> tuple[int, Tensor]:
+    """(variant code, X as that variant reads it): bf16 X without
+    compensation widens to fp32 (exact) for the fp32 plain build."""
+    if X.dtype == torch.bfloat16 and not compensated:
+        X = X.float()
+    if (X.dtype, bool(compensated)) not in VARIANTS:
+        raise NotImplementedError(f"{what}: X is {X.dtype}; the CUDA kernels take float32 "
+                                  f"or bfloat16 ({_A7})")
+    return VARIANTS[X.dtype, bool(compensated)], X
+
+
+def two_sum(acc: Tensor, comp: Tensor, delta: Tensor) -> tuple[Tensor, Tensor]:
+    """Kahan/two-sum compensated ``acc += delta``; returns (acc', comp').
+    The carry ``comp`` holds the low-order bits each fp32 add lost, so that
+    ``acc - comp`` is the sum to O(eps) whatever the number of terms. The
+    reference's ``_two_sum``; the kernels' ``two_sum`` in csrc/sweep.cuh."""
+    y = delta - comp
+    t = acc + y
+    return t, (t - acc) - y
+
+
+def _compensated_sum(deltas: Tensor) -> Tensor:
+    """sum(deltas[k] for k in order) through a Kahan carry, folded."""
+    acc = torch.zeros_like(deltas[0])
+    comp = torch.zeros_like(deltas[0])
+    for k in range(deltas.shape[0]):
+        acc, comp = two_sum(acc, comp, deltas[k])
+    return acc - comp
+
+
+def _tile_deltas(K: Tensor, V: Tensor) -> Tensor:
+    """(tiles, rows, p): each 128-column tile j of K (rows, n) times rows j
+    of V (n, p), zero-padded past n — the terms of the kernels' compensated
+    loop over B's (or C's) tiles."""
+    n = K.shape[1]
+    nbj = -(-n // SWEEP_BN)
+    pad = nbj * SWEEP_BN - n
+    Kt = torch.nn.functional.pad(K, (0, pad)).reshape(K.shape[0], nbj, SWEEP_BN)
+    Vt = torch.nn.functional.pad(V, (0, 0, 0, pad)).reshape(nbj, SWEEP_BN, V.shape[1])
+    return torch.einsum("rjk,jkp->jrp", Kt, Vt)
+
+
 # ---------------------------------------------------------------------------
 # B1 fused sweep: w = K(X, C)^T (K(X, C) u + v)
 # ---------------------------------------------------------------------------
 def fused_sweep_plain(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
                       spec: KernelSpec, row_mask: Tensor | None = None,
-                      block_rows: int = 2048) -> tuple[Tensor, Tensor]:
+                      block_rows: int = 2048, compensated: bool = False,
+                      out_dtype: torch.dtype | None = None) -> tuple[Tensor, Tensor]:
     """Plain twin of the sweep kernel, on the same two-evaluation schedule.
 
-    ``u`` (M, p), ``v`` (n, p) or None. Row blocks are zero-padded to
-    ``block_rows`` so every block contracts at one shape; ``t`` is zeroed on
-    padded rows and multiplied by ``row_mask``, so masked rows contribute
-    exactly 0. Returns ``(w, tile evaluations)``: every entry is evaluated
-    twice, ``2 * nbi * nbj`` in the kernel's 128 x 128 tile units.
+    ``u`` (M, p), ``v`` (n, p) or None, each widened to fp32 as the kernel
+    loads it. Row blocks are zero-padded to ``block_rows`` so every block
+    contracts at one shape; ``t`` is zeroed on padded rows and multiplied by
+    ``row_mask``, so masked rows contribute exactly 0. ``compensated``
+    two-sums t over the kernel's 128-center tiles and w over its 128-row
+    blocks, in order (the kernel's compensation points), and folds each
+    carry at the end. Returns ``(w, tile evaluations)``, w at ``out_dtype``
+    (default: X's and u's promotion): every entry is evaluated twice,
+    ``2 * nbi * nbj`` in the kernel's 128 x 128 tile units.
     """
+    if out_dtype is None:
+        out_dtype = torch.promote_types(X.dtype, u.dtype)
+    X, C, u, v = _wide(X), _wide(C), _wide(u), _wide(v)
     n = X.shape[0]
     w = torch.zeros(C.shape[0], u.shape[1], dtype=X.dtype, device=X.device)
+    wc = torch.zeros_like(w)   # w's carry (compensated)
+    if compensated:
+        block_rows = -(-block_rows // SWEEP_BM) * SWEEP_BM
     for r0 in range(0, n, block_rows):
         rows = min(block_rows, n - r0)
         pad = block_rows - rows
         xb = torch.nn.functional.pad(X[r0:r0 + rows], (0, 0, 0, pad))
         keep = torch.zeros(block_rows, dtype=X.dtype, device=X.device)
         keep[:rows] = 1.0 if row_mask is None else row_mask[r0:r0 + rows].to(X.dtype)
-        t = tile_eval(spec, xb, C) @ u                       # pass 1
+        if not compensated:
+            t = tile_eval(spec, xb, C) @ u                       # pass 1
+            if v is not None:
+                t = t + torch.nn.functional.pad(v[r0:r0 + rows], (0, 0, 0, pad))
+            t = t * keep[:, None]
+            w = w + tile_eval(spec, xb, C).T @ t                 # pass 2
+            continue
+        K = tile_eval(spec, xb, C)
+        t = _compensated_sum(_tile_deltas(K, u))                 # pass 1
         if v is not None:
             t = t + torch.nn.functional.pad(v[r0:r0 + rows], (0, 0, 0, pad))
         t = t * keep[:, None]
-        w = w + tile_eval(spec, xb, C).T @ t                 # pass 2
+        sub = block_rows // SWEEP_BM                             # pass 2
+        deltas = torch.einsum("srm,srp->smp", K.reshape(sub, SWEEP_BM, -1),
+                              t.reshape(sub, SWEEP_BM, -1))
+        for k in range(sub):
+            w, wc = two_sum(w, wc, deltas[k])
+    if compensated:
+        w = w - wc
     nbi, nbj = sweep_tile_grid(n, C.shape[0])
-    return w, torch.tensor(2 * nbi * nbj, dtype=torch.int32)
+    return w.to(out_dtype), torch.tensor(2 * nbi * nbj, dtype=torch.int32)
 
 
-def _fused_sweep_cuda(X, C, u, v, *, spec, row_mask):
+def _fused_sweep_cuda(X, C, u, v, *, spec, row_mask, compensated=False, out_dtype=None):
     what = "fused_sweep"
     n, d = X.shape
     M = C.shape[0]
@@ -308,10 +416,17 @@ def _fused_sweep_cuda(X, C, u, v, *, spec, row_mask):
         mask = row_mask.to(torch.float32).contiguous()
     if n == 0 or M == 0 or d == 0:
         raise ValueError(f"{what}: empty operand (n={n}, M={M}, d={d})")
+    if out_dtype is None:
+        out_dtype = torch.promote_types(X.dtype, u.dtype)
+    variant, X = _variant(what, X, compensated)
+    _check_out_dtype(what, out_dtype, card=True)
+    comp = variant != 0
+    if not comp:   # the fp32 build reads v and writes w in fp32 only
+        v = _wide(v)
     _check_operands(what, X.device, X=X, C=C, u=u, v=v, row_mask=mask)
     P = _pad_p(p)
-    smem, w_in_smem = sweep_smem_bytes(M, p, d)
-    w = torch.empty(M, p, dtype=torch.float32, device=X.device)
+    smem, w_in_smem = sweep_smem_bytes(M, p, d, comp)
+    w = torch.empty(M, p, dtype=out_dtype if comp else torch.float32, device=X.device)
     counter = torch.zeros(1, dtype=torch.int32, device=X.device)
     nbi, nbj = sweep_tile_grid(n, M)
     # the prologue's centers: per 128-center tile, C k-major, ||c||^2, u
@@ -319,30 +434,36 @@ def _fused_sweep_cuda(X, C, u, v, *, spec, row_mask):
     with torch.cuda.device(X.device):
         lib = _lib()
         kp = _kparams(spec)
-        grid = min(_sweep_grid(P, kp[0], smem, X.device.index), nbi)
-        partial = torch.empty(grid * M * P, dtype=torch.float32, device=X.device)
+        grid = min(_sweep_grid(P, kp[0], smem, variant, X.device.index), nbi)
+        # the w partials, then (compensated) their carries
+        partial = torch.empty((2 if comp else 1) * grid * M * P, dtype=torch.float32,
+                              device=X.device)
         code = lib.rt_fused_sweep(
-            _ptr(X), _ptr(C), _ptr(u), _ptr(v), _ptr(mask), n, M, d, p,
-            *kp, P, int(w_in_smem), smem, grid,
-            _ptr(packed), _ptr(partial), _ptr(w), _ptr(counter), _stream(X.device))
+            variant, _ptr(X), _ptr(C), _code(C), _ptr(u), _code(u), _ptr(v), _code(v),
+            _ptr(mask), n, M, d, p, *kp, P, int(w_in_smem), smem, grid,
+            _ptr(packed), _ptr(partial), _ptr(w), _code(w), _ptr(counter), _stream(X.device))
         _check(code, what)
         fused_sweep.launches += 1
-    return w, counter[0]
+        fused_sweep.variant_launches[variant] += 1
+    return w.to(out_dtype), counter[0]
 
 
 def fused_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
                 spec: KernelSpec, row_mask: Tensor | None = None,
-                return_tile_count: bool = False):
+                return_tile_count: bool = False, compensated: bool = False):
     """w = K(X,C)^T (K(X,C) u + v) — the whole CG sweep in one launch per
     column group.
 
     X: (n, d), C: (M, d), u: (M,) or (M, p), v like u's rows over n or None
-    -> w like u. Any p >= 1: the columns run in groups of at most MAX_P
-    (:func:`column_groups`), one launch (or, on the CPU, one twin call)
-    each. ``row_mask`` (n,), 0/1: rows with mask 0 contribute EXACTLY zero
-    (their t_i is zeroed before the transposed product). With
-    ``return_tile_count=True`` also returns the int32 count of Gram tiles
-    evaluated, summed over the groups: ``groups * 2 * nbi * nbj``.
+    -> w like u, at X's and u's promotion (the reference's ``out``). X, C,
+    u and v are fp32 or bf16; ``compensated`` runs t and w through Kahan
+    carries (the bf16 policy's accumulation). Any p >= 1: the columns run in
+    groups of at most MAX_P (:func:`column_groups`), one launch (or, on the
+    CPU, one twin call) each. ``row_mask`` (n,), 0/1: rows with mask 0
+    contribute EXACTLY zero (their t_i is zeroed before the transposed
+    product). With ``return_tile_count=True`` also returns the int32 count
+    of Gram tiles evaluated, summed over the groups:
+    ``groups * 2 * nbi * nbj``.
     """
     squeeze = u.ndim == 1
     u2 = u[:, None] if squeeze else u
@@ -352,7 +473,8 @@ def fused_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
              else _fused_sweep_cuda)
     ws, count = [], 0
     for g in column_groups(p):
-        w, c = sweep(X, C, _group(u2, g, p), _group(v2, g, p), spec=spec, row_mask=row_mask)
+        w, c = sweep(X, C, _group(u2, g, p), _group(v2, g, p), spec=spec, row_mask=row_mask,
+                     compensated=compensated)
         ws.append(w)
         count = count + c
     w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=1)
@@ -361,44 +483,67 @@ def fused_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
 
 
 fused_sweep.launches = 0
+fused_sweep.variant_launches = [0] * len(VARIANT_NAMES)
 
 
 # ---------------------------------------------------------------------------
 # B2 kernel matmul: out = K(A, B) V + add
 # ---------------------------------------------------------------------------
 def kernel_matmul_plain(A: Tensor, B: Tensor, V: Tensor, add: Tensor | None = None, *,
-                        spec: KernelSpec, block_rows: int = 2048) -> Tensor:
-    """Plain twin of the kernel matmul: ``V`` (n, p), ``add`` (m, p) or None."""
-    out = torch.cat([tile_eval(spec, A[r:r + block_rows], B) @ V
-                     for r in range(0, A.shape[0], block_rows)], dim=0)
-    return out if add is None else out + add
+                        spec: KernelSpec, block_rows: int = 2048, compensated: bool = False,
+                        out_dtype: torch.dtype | None = None) -> Tensor:
+    """Plain twin of the kernel matmul: ``V`` (n, p), ``add`` (m, p) or None,
+    each widened to fp32 as the kernel loads it. ``compensated`` two-sums
+    the products over B's 128-row tiles, in order, and folds the carry
+    before ``add``. The result is at ``out_dtype`` (default: A's and V's
+    promotion)."""
+    if out_dtype is None:
+        out_dtype = torch.promote_types(A.dtype, V.dtype)
+    A, B, V, add = _wide(A), _wide(B), _wide(V), _wide(add)
+    if compensated:
+        out = torch.cat([_compensated_sum(_tile_deltas(tile_eval(spec, A[r:r + block_rows], B),
+                                                       V))
+                         for r in range(0, A.shape[0], block_rows)], dim=0)
+    else:
+        out = torch.cat([tile_eval(spec, A[r:r + block_rows], B) @ V
+                         for r in range(0, A.shape[0], block_rows)], dim=0)
+    return (out if add is None else out + add).to(out_dtype)
 
 
 def kernel_matmul_sliced_plain(A: Tensor, B: Tensor, V: Tensor, add: Tensor | None = None, *,
-                               spec: KernelSpec, slices: int) -> Tensor:
+                               spec: KernelSpec, slices: int, compensated: bool = False,
+                               out_dtype: torch.dtype | None = None) -> Tensor:
     """The kernel's split schedule in plain PyTorch, for the tests: B's rows
     in ``slices`` contiguous slices of 128-row tiles
     (:func:`matmul_slice_bounds`), each slice's K(A, B_s) V_s summed in
-    slice order, then ``add``."""
-    out = None
-    for b0, b1 in matmul_slice_bounds(B.shape[0], slices):
-        part = kernel_matmul_plain(A, B[b0:b1], V[b0:b1], spec=spec)
-        out = part if out is None else out + part
-    return out if add is None else out + add
+    slice order (two-summed when ``compensated``), then ``add``."""
+    if out_dtype is None:
+        out_dtype = torch.promote_types(A.dtype, V.dtype)
+    parts = [kernel_matmul_plain(A, B[b0:b1], V[b0:b1], spec=spec, compensated=compensated,
+                                 out_dtype=torch.promote_types(A.dtype, torch.float32))
+             for b0, b1 in matmul_slice_bounds(B.shape[0], slices)]
+    if compensated:
+        out = _compensated_sum(torch.stack(parts))
+    else:
+        out = None
+        for part in parts:
+            out = part if out is None else out + part
+    return (out if add is None else out + _wide(add)).to(out_dtype)
 
 
 @functools.cache
-def _matmul_slots(P: int, kind: int, d: int, device_index: int) -> tuple[int, int]:
+def _matmul_slots(P: int, kind: int, d: int, variant: int, device_index: int) -> tuple[int, int]:
     """(shared memory bytes, resident blocks on the card) of B2's
-    instantiation for (P, kernel kind code) at depth d (the caller holds
-    the device context of ``device_index``)."""
+    instantiation for (P, kernel kind code, variant) at depth d (the caller
+    holds the device context of ``device_index``)."""
     smem, slots = ctypes.c_int(0), ctypes.c_int(0)
-    _check(_lib().rt_matmul_slots(P, kind, d, ctypes.byref(smem), ctypes.byref(slots)),
+    _check(_lib().rt_matmul_slots(P, kind, d, variant, ctypes.byref(smem),
+                                  ctypes.byref(slots)),
            "kernel matmul slots query")
     return smem.value, slots.value
 
 
-def _kernel_matmul_cuda(A, B, V, add, *, spec, slots=None):
+def _kernel_matmul_cuda(A, B, V, add, *, spec, slots=None, compensated=False, out_dtype=None):
     """One B2 launch. ``slots`` stands in for the card's resident blocks in
     the split rule (the checks force S = 1 with 1, and the most slices with
     a large count)."""
@@ -411,9 +556,15 @@ def _kernel_matmul_cuda(A, B, V, add, *, spec, slots=None):
                          f"V {tuple(V.shape)}, add {None if add is None else tuple(add.shape)}")
     if m == 0 or n == 0 or d == 0:
         raise ValueError(f"{what}: empty operand (m={m}, n={n}, d={d})")
+    if out_dtype is None:
+        out_dtype = torch.promote_types(A.dtype, V.dtype)
+    variant, A = _variant(what, A, compensated)
+    _check_out_dtype(what, out_dtype, card=True)
+    if variant == 0:   # the fp32 build reads add and writes out in fp32 only
+        add = _wide(add)
     _check_operands(what, A.device, A=A, B=B, V=V, add=add)
+    out = torch.empty(m, p, dtype=out_dtype if variant else torch.float32, device=A.device)
     P = _pad_p(p)
-    out = torch.empty(m, p, dtype=torch.float32, device=A.device)
     # the prologue's B: per 128-row tile, B k-major, ||b||^2, V
     packed = torch.empty(-(-n // SWEEP_BN) * (d + 1 + P) * SWEEP_BN, dtype=torch.float32,
                          device=A.device)
@@ -421,41 +572,50 @@ def _kernel_matmul_cuda(A, B, V, add, *, spec, slots=None):
         lib = _lib()
         kp = _kparams(spec)
         if slots is None:
-            slots = _matmul_slots(P, kp[0], d, A.device.index)[1]
+            slots = _matmul_slots(P, kp[0], d, variant, A.device.index)[1]
         S = lib.rt_matmul_slices(m, n, slots)
         partial = (torch.empty(S * m * p, dtype=torch.float32, device=A.device)
                    if S > 1 else None)
         code = lib.rt_kernel_matmul(
-            _ptr(A), _ptr(B), _ptr(V), _ptr(add), m, n, d, p, *kp, P, slots,
-            _ptr(packed), _ptr(partial), _ptr(out), _stream(A.device))
+            variant, _ptr(A), _ptr(B), _code(B), _ptr(V), _code(V), _ptr(add), _code(add),
+            m, n, d, p, *kp, P, slots, _ptr(packed), _ptr(partial), _ptr(out), _code(out),
+            _stream(A.device))
         _check(code, what)
         kernel_matmul.launches += 1
-    return out
+        kernel_matmul.variant_launches[variant] += 1
+    return out.to(out_dtype)
 
 
 def kernel_matmul(A: Tensor, B: Tensor, V: Tensor, add: Tensor | None = None, *,
-                  spec: KernelSpec, out_dtype: torch.dtype | None = None) -> Tensor:
+                  spec: KernelSpec, out_dtype: torch.dtype | None = None,
+                  compensated: bool = False) -> Tensor:
     """out = K(A, B) V (+ add) with Gram tiles that never leave the chip.
 
-    A: (m, d), B: (n, d), V: (n,) or (n, p), add like the output or None.
-    Any p >= 1, in groups of at most MAX_P columns, one launch each.
-    ``out_dtype`` is float32 (or None); other output types are ROADMAP A7.
+    A: (m, d), B: (n, d), V: (n,) or (n, p), add like the output or None;
+    each fp32 or bf16. Any p >= 1, in groups of at most MAX_P columns, one
+    launch each. ``compensated`` runs the sum over B's tiles through a Kahan
+    carry. ``out_dtype`` is float32 or bfloat16 (default: A's and V's
+    promotion, the reference's); a bf16 result is rounded once, from the
+    fp32 sum with ``add``.
     """
-    if out_dtype not in (None, torch.float32):
-        raise NotImplementedError(f"kernel_matmul out_dtype={out_dtype}: {_A7}")
+    if out_dtype is None:
+        out_dtype = torch.promote_types(A.dtype, V.dtype)
+    _check_out_dtype("kernel_matmul", out_dtype)
     squeeze = V.ndim == 1
     V2 = V[:, None] if squeeze else V
     add2 = None if add is None else (add[:, None] if squeeze else add)
     p = V2.shape[1]
     matmul = (kernel_matmul_plain if _route("kernel_matmul", A, B, V2, add2) == "cpu"
               else _kernel_matmul_cuda)
-    outs = [matmul(A, B, _group(V2, g, p), _group(add2, g, p), spec=spec)
+    outs = [matmul(A, B, _group(V2, g, p), _group(add2, g, p), spec=spec,
+                   compensated=compensated, out_dtype=out_dtype)
             for g in column_groups(p)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out[:, 0] if squeeze else out
 
 
 kernel_matmul.launches = 0
+kernel_matmul.variant_launches = [0] * len(VARIANT_NAMES)
 
 
 # ---------------------------------------------------------------------------
@@ -550,7 +710,7 @@ def _pairwise_kernel_cuda(A, B, spec):
         raise ValueError(f"{what}: shapes A {tuple(A.shape)}, B {tuple(B.shape)}")
     if m == 0 or n == 0 or d == 0:
         raise ValueError(f"{what}: empty operand (m={m}, n={n}, d={d})")
-    _check_operands(what, A.device, A=A, B=B)
+    _check_operands(what, A.device, types=(torch.float32,), A=A, B=B)
     out = torch.empty(m, n, dtype=torch.float32, device=A.device)
     # the prologue's B: per 128-row tile, B k-major, ||b||^2 and a zero row
     packed = torch.empty(-(-n // SWEEP_BN) * (d + 2) * SWEEP_BN, dtype=torch.float32,
@@ -587,63 +747,90 @@ pairwise_kernel.launches = 0
 SHARD_ROW_CHUNK = 65_536
 
 
-def _transposed_pass(matmul, C: Tensor, X: Tensor, t: Tensor, shard: int, **kw) -> Tensor:
+def _transposed_pass(matmul, C: Tensor, X: Tensor, t: Tensor, shard: int, *,
+                     out_dtype: torch.dtype, **kw) -> Tensor:
     """w = K(C, X) t, one shard of C rows at a time, each summed over X in
-    ``SHARD_ROW_CHUNK``-row chunks chained through ``add=``."""
+    ``SHARD_ROW_CHUNK``-row chunks chained through ``add=``. The chained w
+    stays fp32 (float64 in a float64 twin) whatever ``out_dtype`` is; the
+    last chunk of a shard writes ``out_dtype``. A compensated launch's carry
+    starts anew in each chunk: the chain between chunks is one plain add."""
+    inter = torch.promote_types(out_dtype, torch.float32)
+    last = (X.shape[0] - 1) // SHARD_ROW_CHUNK * SHARD_ROW_CHUNK
     ws = []
     for j0 in range(0, C.shape[0], shard):
         w = None
         for r0 in range(0, X.shape[0], SHARD_ROW_CHUNK):
             r1 = r0 + SHARD_ROW_CHUNK
-            w = matmul(C[j0:j0 + shard], X[r0:r1], t[r0:r1], w, **kw)
+            w = matmul(C[j0:j0 + shard], X[r0:r1], t[r0:r1], w,
+                       out_dtype=out_dtype if r0 == last else inter, **kw)
         ws.append(w)
     return torch.cat(ws, dim=0)
 
 
+def _sharded_dtypes(X, u, C, t_dtype, out_dtype) -> tuple[torch.dtype, torch.dtype]:
+    """(t's type, w's type): the reference's defaults, t at X's and u's
+    promotion and w at C's and t's."""
+    t_dt = t_dtype if t_dtype is not None else torch.promote_types(X.dtype, u.dtype)
+    out_dt = out_dtype if out_dtype is not None else torch.promote_types(C.dtype, t_dt)
+    return t_dt, out_dt
+
+
 def sharded_sweep_plain(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
                         spec: KernelSpec, row_mask: Tensor | None = None,
-                        shard_m: int) -> Tensor:
+                        shard_m: int, compensated: bool = False,
+                        t_dtype: torch.dtype | None = None,
+                        out_dtype: torch.dtype | None = None) -> Tensor:
     """Plain twin of the sharded sweep: the same composition over the plain
     twin of B2. ``u`` (M, p), ``v`` (n, p) or None."""
-    t = kernel_matmul_plain(X, C, u, v, spec=spec)
+    t_dt, out_dt = _sharded_dtypes(X, u, C, t_dtype, out_dtype)
+    t = kernel_matmul_plain(X, C, u, v, spec=spec, compensated=compensated, out_dtype=t_dt)
     if row_mask is not None:
         t = t * row_mask.to(t.dtype)[:, None]
-    return _transposed_pass(kernel_matmul_plain, C, X, t, shard_m, spec=spec)
+    return _transposed_pass(kernel_matmul_plain, C, X, t, shard_m, spec=spec,
+                            compensated=compensated, out_dtype=out_dt)
 
 
-def _sharded_sweep_cuda(X, C, u, v, *, spec, row_mask, shard_m):
-    t = kernel_matmul(X, C, u, v, spec=spec)
+def _sharded_sweep_cuda(X, C, u, v, *, spec, row_mask, shard_m, compensated=False,
+                        t_dtype=None, out_dtype=None):
+    t_dt, out_dt = _sharded_dtypes(X, u, C, t_dtype, out_dtype)
+    t = kernel_matmul(X, C, u, v, spec=spec, compensated=compensated, out_dtype=t_dt)
     if row_mask is not None:
         if row_mask.shape != (X.shape[0],):
             raise ValueError(f"sharded_sweep: row_mask shape {tuple(row_mask.shape)} "
                              f"!= ({X.shape[0]},)")
         t = t * row_mask.to(t.dtype)[:, None]
-    w = _transposed_pass(kernel_matmul, C, X, t, shard_m, spec=spec)
+    w = _transposed_pass(kernel_matmul, C, X, t, shard_m, spec=spec, compensated=compensated,
+                         out_dtype=out_dt)
     sharded_sweep.launches += 1
+    # its B2 launches' build (bf16 X without compensation runs the fp32 one)
+    sharded_sweep.variant_launches[VARIANTS.get((X.dtype, bool(compensated)), 0)] += 1
     return w
 
 
 def sharded_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
                   spec: KernelSpec, row_mask: Tensor | None = None, shard_m: int = 8192,
                   t_dtype: torch.dtype | None = None,
-                  out_dtype: torch.dtype | None = None) -> Tensor:
+                  out_dtype: torch.dtype | None = None, compensated: bool = False) -> Tensor:
     """w = K(X,C)^T (K(X,C) u + v) for M past the fused sweep's workspace.
 
     The out-of-core schedule of the reference's ``sharded_sweep_pallas``,
     built from B2: ``t = kernel_matmul(X, C, u, add=v)`` spills (n, p) to
-    device memory, rows with ``row_mask == 0`` are multiplied to exactly 0,
-    then ``kernel_matmul(C_j, X, t)`` per ``shard_m`` rows of C (over X in
-    ``SHARD_ROW_CHUNK``-row chunks chained through ``add=``), and the shards
-    are concatenated. Each Gram entry is evaluated twice. Any p >= 1: the
-    columns run in groups of at most MAX_P, the whole schedule once per
-    group. This wrapper counts one launch per group on a CUDA tensor, and
-    each B2 launch inside it counts on ``kernel_matmul``'s counter too.
-    Only float32 ``t_dtype`` / ``out_dtype`` (or None) are taken: the
-    others are ROADMAP A7.
+    device memory at ``t_dtype`` (default: X's and u's promotion; the bf16
+    policy spills bf16), rows with ``row_mask == 0`` are multiplied to
+    exactly 0, then ``kernel_matmul(C_j, X, t)`` per ``shard_m`` rows of C
+    (over X in ``SHARD_ROW_CHUNK``-row chunks chained through ``add=`` in
+    fp32, the last chunk writing ``out_dtype``, default C's and t's
+    promotion), and the shards are concatenated. ``compensated`` runs each
+    B2 launch's sum through a Kahan carry; the carry starts anew in each
+    row chunk. Each Gram entry is evaluated twice. Any p >= 1: the columns
+    run in groups of at most MAX_P, the whole schedule once per group. This
+    wrapper counts one launch per group on a CUDA tensor, and each B2 launch
+    inside it counts on ``kernel_matmul``'s counter too. ``t_dtype`` and
+    ``out_dtype`` are float32 or bfloat16 (or None).
     """
     for name, dt in (("t_dtype", t_dtype), ("out_dtype", out_dtype)):
-        if dt not in (None, torch.float32):
-            raise NotImplementedError(f"sharded_sweep {name}={dt}: {_A7}")
+        if dt is not None and dt not in DTYPE_CODES:
+            raise NotImplementedError(f"sharded_sweep {name}={dt}: not ported ({_A7})")
     shard = max(int(shard_m), 1)
     squeeze = u.ndim == 1
     u2 = u[:, None] if squeeze else u
@@ -652,12 +839,14 @@ def sharded_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
     sweep = (sharded_sweep_plain if _route("sharded_sweep", X, C, u2, v2, row_mask) == "cpu"
              else _sharded_sweep_cuda)
     ws = [sweep(X, C, _group(u2, g, p), _group(v2, g, p), spec=spec, row_mask=row_mask,
-                shard_m=shard) for g in column_groups(p)]
+                shard_m=shard, compensated=compensated, t_dtype=t_dtype, out_dtype=out_dtype)
+          for g in column_groups(p)]
     w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=1)
     return w[:, 0] if squeeze else w
 
 
 sharded_sweep.launches = 0
+sharded_sweep.variant_launches = [0] * len(VARIANT_NAMES)
 
 WRAPPERS = (fused_sweep, sharded_sweep, kernel_matmul, pairwise_kernel)
 
@@ -670,8 +859,19 @@ def launch_counts() -> dict[str, int]:
             **blocked_cholesky.launch_counts()}
 
 
+def variant_launch_counts() -> dict[str, int]:
+    """Launches of each build of B1, B2 and B4 since the last reset, keyed
+    ``<wrapper>_<build>`` (``fused_sweep_bf16c``: the bf16 compensated B1);
+    they sum to the wrappers' ``launch_counts``."""
+    return {f"{fn.__name__}_{name}": fn.variant_launches[code]
+            for fn in (fused_sweep, sharded_sweep, kernel_matmul)
+            for code, name in enumerate(VARIANT_NAMES)}
+
+
 def reset_launch_counts() -> None:
     from . import blocked_cholesky
     for fn in WRAPPERS:
         fn.launches = 0
+        if hasattr(fn, "variant_launches"):
+            fn.variant_launches = [0] * len(VARIANT_NAMES)
     blocked_cholesky.reset_launch_counts()

@@ -18,10 +18,14 @@ Registered implementations (this package's registry only):
 This module imports nothing from ``repro_torch.core`` or
 ``repro_torch.kernels``; backends duck-type the kernel via its ``spec``.
 
-``precision`` names a :class:`PrecisionPolicy`. Only ``"fp32"`` runs in this
-port so far: the bf16 end-to-end policy (reduced storage, Kahan-compensated
-accumulation) is ROADMAP item A7, and backends refuse it with
-``NotImplementedError`` rather than running fp32 under its name.
+``precision`` names a :class:`PrecisionPolicy`: ``"fp32"`` (every buffer
+float32, plain accumulation) or ``"bf16"``, the end-to-end policy: every
+n-sized buffer (X, C and v, the CG iterates, the sharded sweep's t spill)
+stored bfloat16, every contraction accumulated in float32 with Kahan
+carries, and the ``gram``, ``cholesky`` and ``coeffs`` buffers kept float32
+by override. A custom policy may store float32 or bfloat16, compensated or
+not; other storage types (float16, fp8) are refused with
+``NotImplementedError`` naming ROADMAP item A7.
 
 It also hosts the two memory planners, pure arithmetic like the
 reference's, each with a structured warning carrying the plan:
@@ -38,6 +42,8 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Any, Protocol, runtime_checkable
+
+import torch
 
 PRECISIONS = ("fp32", "bf16")
 
@@ -105,13 +111,43 @@ def resolve_precision(precision) -> PrecisionPolicy:
         f"(or a PrecisionPolicy instance)")
 
 
-def require_fp32_policy(policy: PrecisionPolicy) -> None:
-    """Refuse a reduced-storage policy: it is not ported yet."""
-    if policy.storage != "float32" or policy.compensated:
+#: storage types the port runs a policy at
+STORAGES = ("float32", "bfloat16")
+
+
+def require_supported_policy(policy: PrecisionPolicy) -> None:
+    """Refuse a policy whose storage the port does not run: float32 and
+    bfloat16 storage, compensated or not, are ported; float16 and fp8 are
+    not."""
+    if policy.storage not in STORAGES or policy.accumulate != "float32":
         raise NotImplementedError(
             f"precision policy {policy.name!r} (storage {policy.storage}, "
-            f"compensated={policy.compensated}) is not ported yet: the bf16 "
-            "end-to-end policy is ROADMAP.md item A7")
+            f"accumulate {policy.accumulate}) is not ported: the port stores "
+            f"{' or '.join(STORAGES)} and accumulates in float32; other "
+            "storage types are ROADMAP.md item A7")
+
+
+def quantize_storage(policy: PrecisionPolicy, a):
+    """Data-space storage quantization, fp32 compute: round through the
+    storage dtype and widen back. float32 storage passes ``a`` through
+    untouched (a float64 caller keeps its float64). After
+    ``repro.ops.gemm.quantize_storage``."""
+    if a is None or policy.storage == "float32":
+        return a
+    return a.to(getattr(torch, policy.storage)).to(torch.float32)
+
+
+def quantize_coeffs(policy: PrecisionPolicy, u):
+    """u at the policy's coefficient dtype (float32 by override): a
+    reduced-storage u (a bf16 CG iterate) is widened for compute, a float64
+    u is never narrowed. After ``repro.ops.gemm.quantize_coeffs``."""
+    co_name = policy.buffer_dtype("coeffs")
+    co = getattr(torch, co_name)
+    if co_name != "float32":
+        return u.to(co).to(torch.float32)
+    if u.dtype.itemsize < co.itemsize:
+        return u.to(torch.float32)
+    return u
 
 
 #: ``"fused"`` — B1: one launch per sweep that evaluates every Gram tile
@@ -154,16 +190,21 @@ class SweepPlan:
     io_bytes: int              # device workspace of the fused route: its w partials
     workspace_budget_bytes: int
     reason: str
-    input_dtype: str = "float32"
-    accum_dtype: str = "float32"
+    input_dtype: str = "float32"    # X/C storage dtype
+    vector_dtype: str = "float32"   # v/t data-space storage dtype
+    accum_dtype: str = "float32"    # contraction accumulate dtype
+    coeffs_dtype: str = "float32"   # u-in / w-out coefficient dtype
+    compensated: bool = False       # Kahan carries beside the w partials
     systems: int = 1
 
     @property
     def hbm_bytes(self) -> int:
-        """Device-memory working set of one sweep: X, C, v, u and w."""
-        item = _ITEMSIZE[self.input_dtype]
-        return item * ((self.n + self.M) * self.d + self.n * self.p
-                       + 2 * self.M * self.p)
+        """Device-memory working set of one fused sweep: X, C and v at
+        storage width, u and w at coefficient width (the footprint the bf16
+        policy halves; the n-sized terms dominate)."""
+        return (_ITEMSIZE[self.input_dtype] * (self.n + self.M) * self.d
+                + _ITEMSIZE[self.vector_dtype] * self.n * self.p
+                + _ITEMSIZE[self.coeffs_dtype] * 2 * self.M * self.p)
 
 
 def plan_sweep(n: int, M: int, d: int, p: int = 1, *, bm: int, bn: int,
@@ -176,12 +217,14 @@ def plan_sweep(n: int, M: int, d: int, p: int = 1, *, bm: int, bn: int,
     The fused sweep (B1) runs ``grid`` persistent blocks, each holding
     ``scratch_bytes`` of shared memory and its own w partial of M x
     ``width`` floats (``width`` = the compiled column width, p padded up) in
-    a global workspace of ``min(grid, ceil(n / bm)) * M * width * 4`` bytes.
+    a global workspace of ``min(grid, ceil(n / bm)) * M * width * 4`` bytes,
+    doubled when the policy is ``compensated`` (each partial carries a
+    same-size Kahan buffer, as the reference doubles its accumulators).
     When that workspace passes the budget, the sweep takes B4: each Gram
     entry is still evaluated twice, and only the C-shard size is left to
-    choose. ``shard_m`` is sized so that one shard's C rows and w rows
-    (``d + width`` floats a row) fill the budget, in multiples of ``bn``; a
-    single shard covering all of M is the two-pass route.
+    choose. ``shard_m`` is sized so that one shard's C rows (at the storage
+    width) and w rows (``width`` floats) fill the budget, in multiples of
+    ``bn``; a single shard covering all of M is the two-pass route.
 
     ``systems`` charges stacked lam-path systems at the widened width
     ``p * systems``, as the reference planner does. Pure arithmetic.
@@ -192,11 +235,13 @@ def plan_sweep(n: int, M: int, d: int, p: int = 1, *, bm: int, bn: int,
     systems = max(systems, 1)
     p = max(p, 1) * systems
     nbi = -(-n // bm)
-    workspace = min(grid, nbi) * M * width * 4
+    workspace = min(grid, nbi) * M * width * 4 * (2 if pol.compensated else 1)
     base = dict(n=n, M=M, d=d, p=p, block_m=bm, block_n=bn, systems=systems,
                 scratch_bytes=scratch_bytes, io_bytes=workspace,
                 workspace_budget_bytes=workspace_budget,
-                input_dtype=pol.storage, accum_dtype=pol.accumulate)
+                input_dtype=pol.storage, vector_dtype=pol.storage,
+                accum_dtype=pol.accumulate, coeffs_dtype=pol.buffer_dtype("coeffs"),
+                compensated=pol.compensated)
     if workspace <= workspace_budget:
         return SweepPlan(
             path="fused", shard_m=None,
@@ -204,7 +249,7 @@ def plan_sweep(n: int, M: int, d: int, p: int = 1, *, bm: int, bn: int,
                     f"{workspace_budget}B device workspace budget"),
             **base)
     if shard_m is None:
-        shard_m = workspace_budget // (4 * (d + width))
+        shard_m = workspace_budget // (pol.storage_itemsize * d + 4 * width)
     shard_m = max(bn, (int(shard_m) // bn) * bn)
     over = (f"fused w-partial workspace {workspace}B exceeds the "
             f"{workspace_budget}B device workspace budget")
@@ -400,7 +445,7 @@ class OpsBase:
     precision: "str | PrecisionPolicy" = "fp32"
 
     def __post_init__(self):
-        require_fp32_policy(self.policy)
+        require_supported_policy(self.policy)
 
     @property
     def policy(self) -> PrecisionPolicy:

@@ -14,9 +14,16 @@ Counterpart of ``repro/ops/pallas_backend.py``:
 * ``apply`` — the kernel matmul (B2); ``gram`` — the pairwise Gram (B3),
   held at float32 by the policy's ``gram`` override.
 
+Under a reduced-storage policy (after the reference's ``_inputs`` and
+``_vectors``) X, C and v are cast to the storage type (a tensor already at
+it is passed as it is, so a solve that quantized X once never casts it
+again), u is widened to the coefficient type, the kernels run their
+compensated variants when the policy says so, and B4 spills t at the
+storage type and returns w at the coefficient type. ``gram`` stays float32.
+
 CUDA tensors run the kernels; CPU tensors run their plain twins (the same
 wrappers decide, by device). Inputs are made contiguous here; the wrappers
-refuse anything but float32.
+take float32 and bfloat16.
 """
 from __future__ import annotations
 
@@ -37,6 +44,10 @@ def _c(t: Tensor | None) -> Tensor | None:
     return None if t is None else t.contiguous()
 
 
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
 @register_ops("cuda")
 @dataclasses.dataclass(frozen=True)
 class CudaKernelOps(OpsBase):
@@ -46,6 +57,24 @@ class CudaKernelOps(OpsBase):
     def _spec(self):
         return spec_of(self.kernel)
 
+    def _inputs(self, X: Tensor, C: Tensor) -> tuple[Tensor, Tensor]:
+        """X and C at the storage type (float32 storage: as they are)."""
+        if self.policy.storage == "float32":
+            return _c(X), _c(C)
+        st = _dtype(self.policy.storage)
+        return _c(X.to(st)), _c(C.to(st))
+
+    def _vectors(self, u: Tensor, v: Tensor | None) -> tuple[Tensor, Tensor | None]:
+        """u at the coefficient type (a narrower u is widened, never the
+        reverse), v at the storage type."""
+        pol = self.policy
+        if pol.storage != "float32" and v is not None:
+            v = v.to(_dtype(pol.storage))
+        co = _dtype(pol.buffer_dtype("coeffs"))
+        if u.dtype != co and (co != torch.float32 or u.dtype.itemsize < co.itemsize):
+            u = u.to(co)
+        return _c(u), _c(v)
+
     def plan(self, n: int, M: int, d: int, p: int = 1, systems: int = 1) -> SweepPlan:
         """The route ``sweep`` takes for these shapes, from the Hopper
         workspace model (``REPRO_SWEEP_BUDGET_MB``). A block wider than
@@ -54,9 +83,10 @@ class CudaKernelOps(OpsBase):
         width = max(p, 1) * max(systems, 1)
         group = min(width, km.MAX_P)
         bm, bn = km.sweep_block_dims(n, M)
-        smem, _ = km.sweep_smem_bytes(M, group, d)
+        comp = self.policy.compensated
+        smem, _ = km.sweep_smem_bytes(M, group, d, comp)
         return plan_sweep(n, M, d, p, bm=bm, bn=bn, width=km._pad_p(group),
-                          scratch_bytes=smem, grid=km.sweep_grid_model(M, group, d),
+                          scratch_bytes=smem, grid=km.sweep_grid_model(M, group, d, comp),
                           systems=systems, policy=self.policy)
 
     def sweep(self, X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None,
@@ -64,14 +94,23 @@ class CudaKernelOps(OpsBase):
         """``row_mask`` (n,), 0/1: masked rows contribute EXACTLY zero (B1
         zeroes their t_i before the transposed pass; B4 zeroes the spilled
         t rows)."""
+        pol = self.policy
+        X, C = self._inputs(X, C)
+        u, v = self._vectors(u, v)
         p = u.shape[1] if u.ndim > 1 else 1
         plan = self.plan(X.shape[0], C.shape[0], X.shape[1], p)
         if plan.path == "fused":
-            return km.fused_sweep(_c(X), _c(C), _c(u), _c(v), spec=self._spec,
-                                  row_mask=row_mask)
+            return km.fused_sweep(X, C, u, v, spec=self._spec, row_mask=row_mask,
+                                  compensated=pol.compensated)
         warnings.warn(SweepPlanWarning(plan), stacklevel=2)
-        return km.sharded_sweep(_c(X), _c(C), _c(u), _c(v), spec=self._spec,
-                                row_mask=row_mask, shard_m=plan.shard_m or plan.M)
+        # a reduced-storage policy spills t at storage width and returns w
+        # at the coefficient type; float32 keeps the types' promotion
+        t_dt = out_dt = None
+        if pol.storage != "float32":
+            t_dt, out_dt = _dtype(pol.storage), _dtype(pol.buffer_dtype("coeffs"))
+        return km.sharded_sweep(X, C, u, v, spec=self._spec, row_mask=row_mask,
+                                shard_m=plan.shard_m or plan.M, compensated=pol.compensated,
+                                t_dtype=t_dt, out_dtype=out_dt)
 
     def sweep_with_stats(self, X: Tensor, C: Tensor, u: Tensor,
                          v: Tensor | None = None) -> tuple[Tensor, Tensor]:
@@ -80,6 +119,8 @@ class CudaKernelOps(OpsBase):
         ``kernel_matvec.sweep_tile_grid``, ``column_groups``). Only the
         fused kernel counts tiles, so shapes planned off the fused route are
         refused rather than measured on another path."""
+        X, C = self._inputs(X, C)
+        u, v = self._vectors(u, v)
         p = u.shape[1] if u.ndim > 1 else 1
         plan = self.plan(X.shape[0], C.shape[0], X.shape[1], p)
         if plan.path != "fused":
@@ -88,11 +129,15 @@ class CudaKernelOps(OpsBase):
                 f"d={X.shape[1]}, p={p} exceeds the device workspace budget "
                 f"({plan.reason}); sweep() would take the {plan.path!r} path, "
                 "which has no tile counter")
-        return km.fused_sweep(_c(X), _c(C), _c(u), _c(v), spec=self._spec,
-                              return_tile_count=True)
+        return km.fused_sweep(X, C, u, v, spec=self._spec, return_tile_count=True,
+                              compensated=self.policy.compensated)
 
     def apply(self, X: Tensor, C: Tensor, u: Tensor) -> Tensor:
-        return km.kernel_matmul(_c(X), _c(C), _c(u), spec=self._spec)
+        """K(X, C) u on B2: X and C at storage, u at the coefficient type,
+        the result at their promotion (float32 under the bf16 policy)."""
+        X, C = self._inputs(X, C)
+        u, _ = self._vectors(u, None)
+        return km.kernel_matmul(X, C, u, spec=self._spec, compensated=self.policy.compensated)
 
     def gram(self, A: Tensor, B: Tensor) -> Tensor:
         # Per-buffer override: gram feeds the preconditioner's Cholesky and

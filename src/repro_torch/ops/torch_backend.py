@@ -5,7 +5,10 @@ Counterpart of ``repro/ops/jnp_backend.py``. The sweep is the paper's Alg. 1
 one (block, M) Gram strip, using it for both the forward product and the
 transposed accumulation, then discarding it — O(M * block) memory, never
 the full K_nM. It is the CPU path of the port and its own oracle; fp64
-inputs stay fp64.
+inputs stay fp64. Under a reduced-storage policy it quantizes as the
+reference's ``"jnp"`` backend does: X, C and v rounded through the storage
+type and computed in fp32, u at the coefficient type, and the row-block
+reduction of the sweep two-summed when the policy is ``compensated``.
 """
 from __future__ import annotations
 
@@ -13,7 +16,10 @@ import dataclasses
 
 import torch
 
-from .base import OpsBase, SweepPlan, _sweep_budget, register_ops
+from repro_torch.kernels.kernel_matvec import two_sum
+
+from .base import (OpsBase, SweepPlan, _sweep_budget, quantize_coeffs, quantize_storage,
+                   register_ops)
 
 Tensor = torch.Tensor
 
@@ -43,17 +49,36 @@ def _pad_blocks(X: Tensor, v: Tensor | None, block_size: int,
 class TorchKernelOps(OpsBase):
     """Blocked row-scan reference implementation of the three primitives."""
 
+    def _quant(self, a: Tensor | None) -> Tensor | None:
+        """Storage quantization, fp32 compute (``base.quantize_storage``)."""
+        return quantize_storage(self.policy, a)
+
+    def _quant_coeffs(self, u: Tensor) -> Tensor:
+        """u at the coefficient type (``base.quantize_coeffs``)."""
+        return quantize_coeffs(self.policy, u)
+
+    def _inputs(self, X: Tensor, C: Tensor) -> tuple[Tensor, Tensor]:
+        return self._quant(X), self._quant(C)
+
     def sweep(self, X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None,
               row_mask: Tensor | None = None) -> Tensor:
         """K_nM^T (K_nM u + v) with blocked O(M * block) memory.
 
         ``u``: (M,) or (M, p); ``v``: (n,) or (n, p) or None (treated as 0).
         ``row_mask`` (n,), 0/1: rows with mask 0 contribute EXACTLY zero.
+        Under a reduced-storage policy the inputs are quantized (X, C and v
+        through the storage type, u at the coefficient type), the row-block
+        reduction is two-summed when ``compensated``, and w comes back at
+        the coefficient type.
         """
+        pol = self.policy
+        X, C = self._inputs(X, C)
+        u, v = self._quant_coeffs(u), self._quant(v)
         bs = self.block_size
         Xb, mask, vp, nb = _pad_blocks(X, v, bs, row_mask)
         w = torch.zeros((C.shape[0],) + tuple(u.shape[1:]), dtype=X.dtype,
                         device=X.device)
+        wc = torch.zeros_like(w) if pol.compensated else None
         for i in range(nb):
             mb = mask[i]
             Kb = self.kernel(Xb[i], C) * mb[:, None]          # mask padded rows
@@ -63,11 +88,18 @@ class TorchKernelOps(OpsBase):
                 # Kb.T @ t; masking v too keeps t finite for arbitrary pads.
                 vb = vp[i * bs:(i + 1) * bs]
                 t = t + vb * (mb[:, None] if vb.ndim > 1 else mb)
-            w = w + Kb.T @ t
-        return w
+            if wc is None:
+                w = w + Kb.T @ t
+            else:   # the reference's _two_sum across row blocks
+                w, wc = two_sum(w, wc, Kb.T @ t)
+        co = pol.buffer_dtype("coeffs")
+        return w if co == "float32" else w.to(getattr(torch, co))
 
     def apply(self, X: Tensor, C: Tensor, u: Tensor) -> Tensor:
-        """K_nM u (prediction path), blocked over rows of X."""
+        """K_nM u (prediction path), blocked over rows of X; the inputs
+        quantized as in ``sweep``."""
+        X, C = self._inputs(X, C)
+        u = self._quant_coeffs(u)
         bs = self.block_size
         return torch.cat([self.kernel(X[i:i + bs], C) @ u
                           for i in range(0, X.shape[0], bs)], dim=0)
@@ -91,6 +123,8 @@ class TorchKernelOps(OpsBase):
             block_m=self.block_size, block_n=M, shard_m=None,
             scratch_bytes=4 * self.block_size * M, io_bytes=0,
             workspace_budget_bytes=_sweep_budget(),
-            input_dtype=pol.storage, accum_dtype=pol.accumulate,
+            input_dtype=pol.storage, vector_dtype=pol.storage,
+            accum_dtype=pol.accumulate, coeffs_dtype=pol.buffer_dtype("coeffs"),
+            compensated=pol.compensated,
             reason=(f"torch reference: loop over {self.block_size}-row "
                     f"blocks, O(block * M) live memory"))

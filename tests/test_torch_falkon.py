@@ -26,7 +26,7 @@ from repro_torch import FalkonConfig, FalkonEstimator, falkon_fit, falkon_solve
 from repro_torch.convert import estimator_from_numpy, preconditioner_from_numpy
 from repro_torch.core import falkon as tfalkon
 from repro_torch.core import make_kernel, make_preconditioner
-from repro_torch.ops import CountingOps, get_ops
+from repro_torch.ops import CountingOps, PrecisionPolicy, get_ops
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = [
@@ -92,7 +92,7 @@ def test_port_solve_matches_reference_fit(kind, params, ref_impl):
     # the solve, on the reference's factors, on both port backends
     P = preconditioner_from_numpy(dict(T=np.asarray(jst.precond.T),
                                        A=np.asarray(jst.precond.A),
-                                       n=np.asarray(jst.precond.n)))
+                                       n=np.asarray(jst.precond.n)), device="cpu")
     X_new = np.random.default_rng(1).standard_normal((100, d)).astype(np.float32)
     pred_ref = np.asarray(jest.predict(jnp.asarray(X_new)))
     for impl in ("torch", "cuda"):
@@ -118,7 +118,7 @@ def test_estimator_carried_over_predicts_like_reference():
         (spec.kind, spec.params),
         precond=dict(T=np.asarray(jst.precond.T), A=np.asarray(jst.precond.A),
                      n=np.asarray(jst.precond.n)),
-        lam=LAM)
+        lam=LAM, device="cpu")
     assert isinstance(est, torch.nn.Module)
     assert set(est.state_dict()) == {"centers", "alpha"}
     assert est.kernel.spec == type(est.kernel.spec)(spec.kind, spec.params)
@@ -196,7 +196,7 @@ def test_multiclass_fit_on_the_cuda_backend():
     jest, jst = jfit(jax.random.PRNGKey(0), jnp.asarray(X), jnp.asarray(Y), jcfg)
     P = preconditioner_from_numpy(dict(T=np.asarray(jst.precond.T),
                                        A=np.asarray(jst.precond.A),
-                                       n=np.asarray(jst.precond.n)))
+                                       n=np.asarray(jst.precond.n)), device="cpu")
     Ct = torch.from_numpy(np.asarray(jst.centers).copy())
     kern = make_kernel("gaussian", sigma=2.0)
     solve = {impl: falkon_solve(torch.from_numpy(X), torch.from_numpy(Y), Ct, P, kern, LAM,
@@ -217,7 +217,7 @@ def test_multiclass_fit_on_the_cuda_backend():
 
 def test_unported_options_refuse():
     base = dict(device="cpu")
-    for kw, item in ((dict(precision="bf16"), "A7"),
+    for kw, item in ((dict(precision=PrecisionPolicy(name="fp16", storage="float16")), "A7"),
                      (dict(center_selection="leverage"), "A6"),
                      (dict(knm_cache="auto"), "A11"),
                      (dict(mesh=object()), "A14")):

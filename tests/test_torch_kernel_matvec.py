@@ -162,8 +162,10 @@ def test_kernel_operand_rules():
     cpu = torch.device("cpu")
     with pytest.raises(NotImplementedError, match="A7"):
         km._check_operands("sweep", cpu, X=torch.zeros(4, 2, dtype=torch.float64))
+    km._check_operands("sweep", cpu, X=torch.zeros(4, 2, dtype=torch.bfloat16))
     with pytest.raises(NotImplementedError, match="A7"):
-        km._check_operands("sweep", cpu, X=torch.zeros(4, 2, dtype=torch.bfloat16))
+        km._check_operands("gram", cpu, types=(torch.float32,),
+                           X=torch.zeros(4, 2, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         km._check_operands("sweep", cpu, X=torch.zeros(4, 2).T)
     with pytest.raises(ValueError, match="at most 4"):
@@ -171,7 +173,7 @@ def test_kernel_operand_rules():
     assert [km._pad_p(p) for p in (1, 2, 3, 4)] == [1, 4, 4, 4]
     with pytest.raises(NotImplementedError, match="A7"):
         km.kernel_matmul(torch.zeros(2, 2), torch.zeros(2, 2), torch.zeros(2),
-                         spec=tk.make_kernel("gaussian").spec, out_dtype=torch.bfloat16)
+                         spec=tk.make_kernel("gaussian").spec, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="no CUDA kernel map"):
         km._kparams(tk.KernelSpec("rbf"))
 

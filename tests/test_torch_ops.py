@@ -16,6 +16,7 @@ from repro_torch.ops import (
     POLICIES,
     CountingOps,
     KernelOps,
+    PrecisionPolicy,
     SweepPlanWarning,
     available_ops,
     get_ops,
@@ -50,7 +51,8 @@ def test_registry_and_errors():
     with pytest.raises(ValueError, match="unknown precision"):
         get_ops("torch", kern, precision="fp8")
     with pytest.raises(NotImplementedError, match="A7"):
-        get_ops("cuda", kern, precision="bf16")
+        get_ops("cuda", kern, precision=PrecisionPolicy(name="fp16", storage="float16"))
+    assert get_ops("cuda", kern, precision="bf16").policy is POLICIES["bf16"]
     assert resolve_precision("fp32") is POLICIES["fp32"]
     assert POLICIES["bf16"].buffer_dtype("gram") == "float32"
     assert POLICIES["bf16"].buffer_dtype("data") == "bfloat16"

@@ -126,7 +126,7 @@ def test_preconditioner_matches_reference(branch):
         fields["Q"] = np.asarray(ref.Q)
     if ref.D is not None:
         fields["D"] = np.asarray(ref.D)
-    P = preconditioner_from_numpy(fields)
+    P = preconditioner_from_numpy(fields, device="cpu")
     q = P.q
     u = rng.standard_normal((q, 3)).astype(np.float32)
     w = rng.standard_normal((M, 3)).astype(np.float32)

@@ -6,7 +6,10 @@ pass, B3 (``pairwise_kernel``) at both fits' K_MM (one tensor passed twice,
 as the fit passes its centers) and at a 65,536-row K_nM-cache block against
 SUSY's centers, and B4 (``sharded_sweep``) at the MillionSongs shape:
 medians of CUDA events, each line with the card's name and power limit.
-``--hash`` also prints the sha256 of each B3 result's bytes. Rows are
+``--hash`` also prints the sha256 of each B1, B2 and B3 result's bytes.
+``--bf16`` also times the bf16 compensated builds of B1, B2 and B4 (the bf16
+policy's: X and C in bf16, u in fp32, B4's t spilled in bf16) on the same
+inputs, rounded to bf16; only a checkout that has them takes it. Rows are
 ``torch.randn`` from ``--seed`` and the centers a random subset of them;
 gaussian sigma as the paper's tasks (4 for d = 18, 6 for d = 90). Meant for
 comparing two checkouts in turns on one card: ``--tree`` imports the kernels
@@ -14,7 +17,7 @@ of another checkout (default: this one), on the same inputs. Needs a CUDA
 card. From the repository root:
 
     python3 tools/kernel_times.py [--only b1,b2,b3,b4] [--reps 5] [--seed 0]
-                                  [--tree DIR] [--hash]
+                                  [--tree DIR] [--hash] [--bf16]
 """
 from __future__ import annotations
 
@@ -42,7 +45,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose src/repro_torch is timed (default: this one)")
-    ap.add_argument("--hash", action="store_true", help="print the sha256 of each B3 result")
+    ap.add_argument("--hash", action="store_true",
+                    help="print the sha256 of each B1, B2 and B3 result")
+    ap.add_argument("--bf16", action="store_true",
+                    help="also time the bf16 compensated builds of B1, B2 and B4")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
     import torch
@@ -74,6 +80,11 @@ def main() -> int:
 
     def report(name, fn):
         print(f"{name}: {time_ms(fn):.4f} ms ({card})", flush=True)
+        if args.hash and not name.startswith("B4"):
+            out = fn()
+            print(f"{name} sha256 {sha256(out.reshape(out.shape[0], -1))}", flush=True)
+
+    bf = torch.bfloat16
 
     only = set(args.only.split(","))
     for n, M, d, sigma in ((4_000_000, 10_000, 18, 4.0), (463_715, 50_000, 90, 6.0)):
@@ -82,21 +93,24 @@ def main() -> int:
         u = torch.randn(M, generator=g, device="cuda")
         if "b1" in only:
             report(f"B1 n={n} M={M} d={d}", lambda: km.fused_sweep(X, C, u, spec=spec))
+        if "b1" in only and args.bf16:
+            Xq, Cq = X.to(bf), C.to(bf)
+            report(f"B1 bf16 n={n} M={M} d={d}",
+                   lambda: km.fused_sweep(Xq, Cq, u, spec=spec, compensated=True))
         if "b2" in only and d == 18:
             Xt = torch.randn(500_000, d, generator=g, device="cuda")
             report(f"B2 m={Xt.shape[0]} n={M} d={d}", lambda: km.kernel_matmul(Xt, C, u, spec=spec))
+            if args.bf16:
+                Xtq, Cq = Xt.to(bf), C.to(bf)
+                report(f"B2 bf16 m={Xt.shape[0]} n={M} d={d}",
+                       lambda: km.kernel_matmul(Xtq, Cq, u, spec=spec, compensated=True))
         if "b3" in only:
             gram = lambda: km.pairwise_kernel(C, C, spec=spec)
             report(f"B3 m=n={M} d={d} (K_MM, one tensor twice)", gram)
-            if args.hash:
-                print(f"B3 m=n={M} d={d} sha256 {sha256(gram())}", flush=True)
         if "b3" in only and d == 18:
             Xr = X[:65_536]
             report(f"B3 m={Xr.shape[0]} n={M} d={d} (a K_nM-cache row block)",
                    lambda: km.pairwise_kernel(Xr, C, spec=spec))
-            if args.hash:
-                print(f"B3 m={Xr.shape[0]} n={M} d={d} sha256 "
-                      f"{sha256(km.pairwise_kernel(Xr, C, spec=spec))}", flush=True)
         if "b2" in only and d == 90:
             Cj, Xr = C[:17_280], X[:km.SHARD_ROW_CHUNK]
             t = torch.randn(Xr.shape[0], 1, generator=g, device="cuda")
@@ -106,6 +120,12 @@ def main() -> int:
         if "b4" in only and d == 90:
             report(f"B4 n={n} M={M} d={d} shard_m=17280",
                    lambda: km.sharded_sweep(X, C, u, spec=spec, shard_m=17_280))
+            if args.bf16:
+                Xq, Cq = X.to(bf), C.to(bf)
+                report(f"B4 bf16 n={n} M={M} d={d} shard_m=17280",
+                       lambda: km.sharded_sweep(Xq, Cq, u, spec=spec, shard_m=17_280,
+                                                compensated=True, t_dtype=bf,
+                                                out_dtype=torch.float32))
         del X, C
     return 0
 
