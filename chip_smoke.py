@@ -65,6 +65,27 @@ result line:
                small fit against the plain "torch" backend (and, at
                lam = 1e-6 over 4 center draws, against float64 fits); a
                sweep at that shape against float32 and float64 twins.
+   path     — the lam path at SUSY's full width: ``falkon_fit_path`` with
+               the main fit's config and seed (so its centers) over the grid
+               lam = 10^(-8 + k/2), k = 0..7, the test rows as validation
+               set: 21 sweeps, 1 apply and 1 gram at the ops facade, 41 B1
+               launches (1 right-hand side + 20 CG sweeps x 2 column
+               groups), 2 B2 and 1 B3; stage seconds, device peak and the
+               validation MSE of every lam; at lam = 1e-6 the test error
+               within 0.002 of the main fit's; one single fit at lam = 1e-8
+               (no cond estimate) timed beside the path; at both lams the
+               path's alpha against the single fit's under a measured
+               bound, and both against a float64 fit of the same system
+               (the path no farther than 1.5x the single fit); at
+               n = 20,000, M = 500 every lam's alpha against a float64
+               ``nystrom_direct`` and float64 single fits (relative to the
+               plain float32 path's and single fits' distances) and the
+               grid forced onto the blocked factor, its
+               A stack against the in-core stack and bit-equal to blocked
+               single-lam builds; one leverage-score fit at the SUSY shape
+               (pilot, scoring and sampling seconds, distinct centers, D's
+               range, test error) and leverage scores on 4,096 rows against
+               float64 scorings of the same pilot and float64 exact scores.
    bf16     — the bf16 policy at SUSY's shape: the bf16 compensated B1
                sweep (n = 4x10^6, M = 10^4) and B2 at predict's shape
                against float64 twins on the same bf16 inputs (the kernels'
@@ -94,8 +115,10 @@ result line:
                matrices; B1 at the SUSY shape, B2 at the predict shape
                and at one launch of B4's transposed pass, and B3 at both
                fits' K_MM (symmetric route) and at a 65,536-row K_nM-cache
-               block (full route), each twice, bit-equal; B6 and B7 at
-               the first panel's shapes against their twins (B6 twice,
+               block (full route), each twice, bit-equal; B1 at the SUSY
+               shape also at p = 4 and 8 and B2 at the predict shape at
+               p = 8 (the lam path's widths), against their twins and
+               bit-equal over two runs; B6 and B7 at the first panel's shapes against their twins (B6 twice,
                bit-equal); each kernel at its path's shapes (CUDA events)
                beside its plain twin, its bound and its library call (B2
                also at B4's transposed shape, B3 at its three); B1's (at
@@ -104,7 +127,8 @@ result line:
                (``torch.profiler``); then one ``kernels`` JSON line (B3's
                entry: SUSY's K_MM; the bf16 builds of B1, B2 and B4 as
                entries of their own, their launches from the bf16 fit and
-               the bf16 B4 sweep).
+               the bf16 B4 sweep; B1 at p = 4 and 8 and B2 at p = 8 as
+               entries of their own, their launches from the path fit).
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -211,6 +235,32 @@ UPDATE_SHAPES = ((80, 80, 1280), (44, 44, 256), (116, 116, 192), (4000, 1280, 12
 PRED_RTOL = 1e-7
 #: center draws of the small lam = 1e-6 fits held against float64 fits
 SMALL_SEEDS = 4
+#: the lam path's grid: 10^(-8 + k/2), k = 0..7 (L = 8, SUSY's lam = 1e-6 at k = 4)
+PATH_LAMS = tuple(10.0 ** (-8 + k / 2) for k in range(8))
+#: the path's alpha at lam = 1e-6 against the main fit's, and at the grid's
+#: smallest lam against one single fit's (same centers and factors; the
+#: stacked sweep at width 8, the batched A solves and the CG's column sums
+#: round otherwise, and T^-1 A^-1 amplifies that): measured 0.5675 and
+#: 0.6044 on the card (NVIDIA H100 80GB HBM3, 700 W; the same in every run)
+PATH_ALPHA_BOUND = 0.75
+#: the path may stand at most this many times as far from a float64
+#: reference as the float32 fits it replaces: the small path's alphas
+#: (summed over the grid) from float64 nystrom_direct against the plain
+#: float32 path's, and from float64 single fits against float32 single
+#: fits'; the full-size path's alpha and predictions from a float64 fit
+#: against the float32 single fit's
+PATH_AGREE = 1.5
+#: the small path's blocked A stack against its in-core stack, normwise per
+#: lam: two correct fp32 routes stand ~1e-5 apart (their T differ in
+#: rounding), a factor of a spoiled T T^T stands O(1) off
+PATH_STACK_TOL = 1e-4
+#: leverage scores on 4,096 rows at lam = 1e-6: the card's float32 scoring
+#: against a float64 scoring of the same pilot (normwise; its G = lam n K_SS
+#: + K_Sn K_nS is ill conditioned at this lam), and the float64 estimate
+#: over the float64 exact score, which the Nystrom estimator never exceeds
+#: in exact arithmetic (the K_MM jitter only lowers it): rounding slack
+LEVERAGE_FP32_BOUND = 1e-2
+LEVERAGE_RATIO_SLACK = 1e-6
 #: the compensated builds the kernel checks hold against their twins: bf16
 #: (the bf16 policy's) and fp32 (the reference's compensated=True fp32 case)
 COMP_DTYPES = ("bfloat16", "float32")
@@ -222,6 +272,8 @@ COMP_WIDTHS = (1, 2, 3, 4, 5)
 #: largest entry is added to the fp32 tolerance; B4's bf16 t spill likewise
 #: moves w_j by up to 2^-7 sum_i |K_ij t_i|
 BF16_RTOL = 2.0 ** -7
+#: idle seconds on each side of a profiled call (see ``breakdown``)
+PROFILE_PAD = 2.0
 #: the bf16 policy's error against float64 on unquantized inputs, as the
 #: reference documents it (printed, not held: C.1 measures 1.005e-2)
 POLICY_BOUND = 1e-2
@@ -247,6 +299,8 @@ SOURCES.update(fused_sweep_bf16c="src/repro_torch/kernels/csrc/kernel_matvec_bf1
                sharded_sweep_bf16c="src/repro_torch/kernels/kernel_matvec.py")
 SOURCES.update({name: SOURCE_BLOCKED for name in ("potrf_tile", "trsm_panel",
                                                   "trailing_update")})
+#: B1 and B2 timed at the lam path's column widths (the same builds)
+SOURCES.update(fused_sweep_p4=SOURCE, fused_sweep_p8=SOURCE, kernel_matmul_p8=SOURCE)
 
 
 class SmokeFailure(RuntimeError):
@@ -1015,8 +1069,276 @@ def phase_main(torch, args):
     u = torch.randn(ms, generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
     sweep_witness(torch, km, e.kernel.spec, Xs, e.centers, u, f"n={ns} M={ms}")
     return dict(X=X, y=y, Xt=Xt, yt=yt, centers=est.centers, alpha=est.alpha,
-                spec=est.kernel.spec, counts=counts, fit_s=fit_s, times=times, peak=peak,
-                err=err, pred=pred, task=task)
+                spec=est.kernel.spec, counts=counts, fit_s=fit_s,
+                times=times, peak=peak, err=err, pred=pred, task=task)
+
+
+def phase_path(torch, args, main) -> dict:
+    """The lam path at SUSY's full width: ``falkon_fit_path`` with the main
+    fit's config and generator seed (so its centers) over PATH_LAMS, the
+    test rows as the validation set; its facade and launch counts, stage
+    seconds, device peak and every lam's validation MSE; at lam = 1e-6 its
+    test error and alpha beside the main fit's; one single fit at the
+    grid's smallest lam (no cond estimate) timed beside it, its alpha
+    against the path's; then the small checks (``path_small``) and the
+    leverage fit (``path_leverage``). Returns the path fit's launch counts,
+    which the kernels line reads."""
+    from repro_torch.core import FalkonConfig, falkon_fit, falkon_fit_path
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.ops import CountingOps
+    X, y, Xt, yt, task = main["X"], main["y"], main["Xt"], main["yt"], main["task"]
+    L, t = len(PATH_LAMS), 20
+    config = susy_config(FalkonConfig, task)
+    ops = CountingOps(config.make_ops())
+    times: dict = {}
+    km.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = falkon_fit_path(args.seed, X, y, config, PATH_LAMS, X_val=Xt, y_val=yt, ops=ops,
+                          stage_times=times)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = km.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[path] lam path, L={L} lams 1e-8 .. {PATH_LAMS[-1]:.4g} (10^(-8 + k/2)), n={X.shape[0]} "
+        f"M={config.num_centers} t={t}: stage seconds " + ", ".join(
+            f"{k} {v:.4f}" for k, v in times.items() if isinstance(v, float))
+        + f"; path fit total {path_s:.4f}; factor route {times['factor_path']}")
+    say(f"[path] peak device memory {peak / 2**30:.3f} GiB ({peak} B; the A stack "
+        f"{L} x M^2 x 4 = {L * config.num_centers**2 * 4} B)")
+    say(f"[path] ops facade: {ops.sweeps} sweeps, {ops.applies} apply, {ops.grams} gram; "
+        f"kernel launches: {counts}")
+    check((ops.sweeps, ops.applies, ops.grams) == (t + 1, 1, 1),
+          f"path facade counts {(ops.sweeps, ops.applies, ops.grams)}, not ({t + 1}, 1, 1)")
+    want = {"fused_sweep": 1 + t * 2, "kernel_matmul": 2, "pairwise_kernel": 1}
+    check(all(counts[k] == v for k, v in want.items()),
+          f"path launches {counts}, expected {want} (1 RHS sweep + {t} x 2 column groups)")
+    check(torch.equal(res.estimators[0].centers, main["centers"]),
+          "the path's centers are not the main fit's")
+    scores = res.val_scores.cpu()
+    check(bool(torch.isfinite(scores).all()) and bool(torch.isfinite(res.state.alphas).all()),
+          "non-finite path alphas or validation scores")
+    say("[path] validation MSE per lam: " + ", ".join(
+        f"{lam:.3g}: {float(s):.6f}" for lam, s in zip(PATH_LAMS, scores))
+        + f"; best lam {PATH_LAMS[res.best_index]:.3g}")
+    res_norms = res.state.residual_norms.cpu()
+    check(bool((res_norms[-1] < res_norms[0]).all()), "a path system's residual did not fall")
+
+    i6 = PATH_LAMS.index(task.lam)
+    est6 = res.estimators[i6]
+    pred6 = est6.predict(Xt)
+    err6 = float((torch.sign(pred6) != yt).float().mean())
+    say(f"[path] lam={task.lam:g}: test error {err6:.6f} (main fit {main['err']:.6f}, bound "
+        f"0.002 apart)")
+    check(abs(err6 - main["err"]) <= 0.002, f"path test error {err6} vs main {main['err']}")
+    against_single(torch, args, main, f"lam={task.lam:g}, against the main fit", res, i6,
+                   main["pred"], main["alpha"])
+
+    lam0 = PATH_LAMS[0]
+    stimes: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est0, _ = falkon_fit(args.seed, X, y, susy_config(FalkonConfig, task, lam=lam0,
+                                                      estimate_cond=False),
+                         stage_times=stimes)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    say(f"[path] one single fit at lam={lam0:g} (estimate_cond=False): {single_s:.4f} s (solve "
+        f"{stimes['solve']:.4f}); the path fit {path_s:.4f} s (solve {times['solve']:.4f}) "
+        f"beside {L} x the single fit {L * single_s:.4f} s (solves {L * stimes['solve']:.4f})")
+    against_single(torch, args, main, f"lam={lam0:g}, against this single fit", res, 0,
+                   est0.predict(Xt), est0.alpha)
+    del res, est0
+    path_small(torch, args, main)
+    path_leverage(torch, args, main)
+    return dict(counts=counts)
+
+
+def against_single(torch, args, main, tag: str, res, i: int, single_pred,
+                   single_alpha) -> None:
+    """The path's estimator ``i`` against a single fit of the same system
+    (same centers and factors). At SUSY's small lams float32 rounding alone
+    moves alpha far (T^-1 A^-1 amplifies it; in float64 the path is the
+    single fits to 1e-6, tests/test_torch_path.py), so the path's alpha is
+    held to PATH_ALPHA_BOUND, measured on the card, and both are held
+    against a float64 fit of the same system (the "torch" backend, same
+    seed and so the same centers): the path's alpha and test predictions
+    no farther from it than PATH_AGREE x the single fit's."""
+    from repro_torch.core import FalkonConfig, falkon_fit
+    X, y, Xt, task = main["X"], main["y"], main["Xt"], main["task"]
+    lam = PATH_LAMS[i]
+    t0 = time.perf_counter()
+    # its 800 MB float64 factor past the 512 MB budget stays in-core: the
+    # blocked route's tile kernels are float32
+    os.environ["REPRO_FACTOR_BUDGET_MB"] = "1024"
+    try:
+        ref = falkon_fit(args.seed, X.double(), y.double(),
+                         susy_config(FalkonConfig, task, lam=lam, dtype="float64",
+                                     ops_impl="torch", estimate_cond=False))[0]
+    finally:
+        os.environ.pop("REPRO_FACTOR_BUDGET_MB")
+    ref_pred = ref.predict(Xt.double())
+    torch.cuda.synchronize()
+    check(torch.equal(ref.centers.float(), main["centers"]), "the float64 fit drew other centers")
+    est = res.estimators[i]
+    pred = est.predict(Xt)
+    d = dict(alpha=rel(est.alpha, single_alpha), pred=rel(pred, single_pred))
+    p64 = dict(alpha=rel(est.alpha, ref.alpha), pred=rel(pred, ref_pred))
+    s64 = dict(alpha=rel(single_alpha, ref.alpha), pred=rel(single_pred, ref_pred))
+    say(f"[path] {tag}: rel distance of the path's alpha {d['alpha']:.4e} (bound "
+        f"{PATH_ALPHA_BOUND:g}) and test predictions {d['pred']:.4e}; from a float64 fit "
+        f"({time.perf_counter() - t0:.1f} s): the path's alpha {p64['alpha']:.4e}, predictions "
+        f"{p64['pred']:.4e}, the single fit's {s64['alpha']:.4e}, {s64['pred']:.4e} (bound "
+        f"{PATH_AGREE:g}x the single fit's)")
+    check(d["alpha"] <= PATH_ALPHA_BOUND, f"the path's alpha ({tag}) stands {d['alpha']:.4e} off")
+    check(all(p64[k] <= PATH_AGREE * s64[k] for k in p64),
+          f"the path ({tag}) stands {p64} from a float64 fit, past {PATH_AGREE:g}x the "
+          f"single fit's {s64}")
+
+
+def path_small(torch, args, main) -> None:
+    """The path at n = 20,000, M = 500 on the card: every lam's alpha on
+    the "cuda" backend against a float64 ``nystrom_direct`` on the same
+    (uniform, distinct) centers, no farther from it (summed over the grid)
+    than PATH_AGREE x the plain float32 "torch" path, and against a float64
+    single fit of t = 20 no farther than PATH_AGREE x a float32 single fit
+    on the card (the path is as accurate as the fits it replaces); then the
+    same grid
+    forced onto the blocked factor (``REPRO_FACTOR_BUDGET_MB``), its A
+    stack against the in-core stack: each lam factors its own copy of
+    T T^T."""
+    from repro_torch.core import (FalkonConfig, falkon_fit, falkon_fit_path,
+                                  make_preconditioner, nystrom_direct)
+    from repro_torch.ops import FactorPlanWarning
+    task = main["task"]
+    ns, ms = 20_000, 500
+    Xs, ys = main["X"][:ns], main["y"][:ns]
+    cfg = susy_config(FalkonConfig, task, num_centers=ms)
+    res = {impl: falkon_fit_path(args.seed, Xs, ys, dataclasses.replace(cfg, ops_impl=impl),
+                                 PATH_LAMS) for impl in ("cuda", "torch")}
+    C = res["cuda"].estimators[0].centers
+    check(torch.equal(C, res["torch"].estimators[0].centers), "small path centers differ")
+    kern = cfg.make_kernel()
+    dc, dt = [], []
+    for i, lam in enumerate(PATH_LAMS):
+        oracle = nystrom_direct(Xs.double(), ys.double(), C.double(), kern, lam).alpha
+        check(bool(torch.isfinite(oracle).all()), f"nystrom_direct at lam={lam:g} not finite")
+        dc.append(rel(res["cuda"].state.alphas[i], oracle))
+        dt.append(rel(res["torch"].state.alphas[i], oracle))
+    say(f"[path] small path n={ns} M={ms}: rel distance of each lam's alpha from a float64 "
+        "nystrom_direct on the same centers: cuda " + " ".join(f"{r:.3e}" for r in dc)
+        + "; torch " + " ".join(f"{r:.3e}" for r in dt)
+        + f"; sums {sum(dc):.4e} vs {sum(dt):.4e} (bound {PATH_AGREE:g}x the latter)")
+    check(sum(dc) <= PATH_AGREE * sum(dt), f"the cuda path stands {sum(dc):.4e} from "
+          f"nystrom_direct, more than {PATH_AGREE:g}x the torch path's {sum(dt):.4e}")
+    # as accurate as single fits: each lam's path alpha and a float32 single
+    # fit's on the card, against a float64 single fit on the same centers
+    dp, ds = [], []
+    for i, lam in enumerate(PATH_LAMS):
+        one = dataclasses.replace(cfg, lam=lam, estimate_cond=False)
+        ref = falkon_fit(args.seed, Xs.double(), ys.double(),
+                         dataclasses.replace(one, dtype="float64", ops_impl="torch"))[0].alpha
+        dp.append(rel(res["cuda"].state.alphas[i], ref))
+        ds.append(rel(falkon_fit(args.seed, Xs, ys, one)[0].alpha, ref))
+    say(f"[path] small path n={ns} M={ms}: rel distance from a float64 single fit (t = 20) of "
+        "each lam's path alpha " + " ".join(f"{r:.3e}" for r in dp) + "; of a float32 "
+        "single fit's " + " ".join(f"{r:.3e}" for r in ds)
+        + f"; sums {sum(dp):.4e} vs {sum(ds):.4e} (bound {PATH_AGREE:g}x the latter)")
+    check(sum(dp) <= PATH_AGREE * sum(ds), f"the path stands {sum(dp):.4e} from float64 "
+          f"single fits, more than {PATH_AGREE:g}x the float32 single fits' {sum(ds):.4e}")
+    os.environ["REPRO_FACTOR_BUDGET_MB"] = "0.2"
+    try:
+        stimes: dict = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FactorPlanWarning)
+            blocked = falkon_fit_path(args.seed, Xs, ys, cfg, PATH_LAMS, stage_times=stimes)
+            KMM = blocked.estimators[0].ops.gram(C, C)
+            singles = [make_preconditioner(KMM, lam, ns, factor_plan="blocked").A
+                       for lam in PATH_LAMS]
+    finally:
+        os.environ.pop("REPRO_FACTOR_BUDGET_MB")
+    A_b, A_i = blocked.state.precond.A, res["cuda"].state.precond.A
+    ra = [rel(A_b[i], A_i[i]) for i in range(len(PATH_LAMS))]
+    same = all(torch.equal(A_b[i], singles[i]) for i in range(len(PATH_LAMS)))
+    copies = stimes["factor_stats"].host_copy_bytes
+    say(f"[path] small path forced blocked ({stimes['factor_path']} block "
+        f"{stimes['factor_block']}): A stack against the in-core stack, per lam rel "
+        + " ".join(f"{r:.3e}" for r in ra) + f" (bound {PATH_STACK_TOL:g}); each A bit-equal "
+        f"to a blocked single-lam build: {same}; host copies of T T^T {copies} B")
+    check(stimes["factor_path"] == "blocked", "the small path did not route blocked")
+    check(max(ra) <= PATH_STACK_TOL and same,
+          "the blocked path's A stack disagrees with the in-core stack or the single builds")
+    check(copies == (len(PATH_LAMS) - 1) * ms * ms * 4, f"host copies {copies} B")
+
+
+def path_leverage(torch, args, main) -> None:
+    """One ``falkon_fit`` at the SUSY shape with leverage-score centers
+    (pilot 256, scored at lam = 1e-6): the pilot, scoring and sampling
+    stages timed apart on the fit's generator seed (the same draws as the
+    fit's), the count of distinct centers, D's range and the test error;
+    then on 4,096 rows the card's float32 approximate scores against a
+    float64 scoring of the same pilot and against float64
+    ``exact_leverage_scores``."""
+    from repro_torch.core import (FalkonConfig, approximate_leverage_scores,
+                                  build_leverage_pilot, exact_leverage_scores, falkon_fit,
+                                  leverage_score_centers, leverage_scores_from_pilot)
+    X, y, Xt, yt, task = main["X"], main["y"], main["Xt"], main["yt"], main["task"]
+    cfg = susy_config(FalkonConfig, task, center_selection="leverage")
+    kern = cfg.make_kernel()
+    g = torch.Generator(device=DEVICE).manual_seed(args.seed)
+    stage = {}
+    for name, fn in (("pilot", lambda: build_leverage_pilot(g, X, kern, pilot_size=256)),
+                     ("scoring", lambda: leverage_scores_from_pilot(stage["pilot"][0], X, kern,
+                                                                    task.lam)),
+                     ("sampling", lambda: leverage_score_centers(g, X, cfg.num_centers,
+                                                                 stage["scoring"][0]))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stage[name] = (out, time.perf_counter() - t0)
+    sel = stage["sampling"][0]
+    times: dict = {}
+    est, st = falkon_fit(args.seed, X, y, cfg, stage_times=times)
+    check(torch.equal(est.centers, sel.centers), "the leverage fit drew other centers")
+    distinct = int(torch.unique(sel.indices).numel())
+    D = st.precond.D
+    err = float((torch.sign(est.predict(Xt)) != yt).float().mean())
+    say(f"[path] leverage centers at n={X.shape[0]} M={cfg.num_centers} (pilot 256, lam "
+        f"{task.lam:g}): pilot {stage['pilot'][1]:.4f} s, scoring {stage['scoring'][1]:.4f} s, "
+        f"sampling {stage['sampling'][1]:.4f} s; {distinct} distinct centers of "
+        f"{cfg.num_centers}; D in [{float(D.min()):.4e}, {float(D.max()):.4e}]; fit stage "
+        "seconds " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()
+                               if isinstance(v, float))
+        + f"; test error {err:.6f} (uniform: {main['err']:.6f})")
+    check(bool(torch.isfinite(est.alpha).all()) and bool(torch.isfinite(D).all()),
+          "non-finite leverage fit")
+    check(err < 0.4, f"leverage fit test error {err} no better than chance")
+    Xs = X[:4096]
+    gs = torch.Generator(device=DEVICE).manual_seed(args.seed + 3)
+    pilot = build_leverage_pilot(gs, Xs, kern, pilot_size=256)
+    s32 = leverage_scores_from_pilot(pilot, Xs, kern, task.lam)
+    pilot64 = pilot._replace(S=pilot.S.double(), KSS=pilot.KSS.double(),
+                             KSnKnS=pilot.KSnKnS.double())
+    s64 = leverage_scores_from_pilot(pilot64, Xs.double(), kern, task.lam)
+    exact = exact_leverage_scores(Xs.double(), kern, task.lam)
+    approx = approximate_leverage_scores(torch.Generator(device=DEVICE).manual_seed(args.seed + 3),
+                                         Xs, kern, task.lam, pilot_size=256)
+    check(torch.equal(approx, s32), "approximate_leverage_scores is not its two stages")
+    r32 = rel(s32, s64)
+    ratio = (s64 / exact).cpu()
+    corr = float(torch.corrcoef(torch.stack([s32.double(), exact]))[0, 1])
+    say(f"[path] leverage scores on {Xs.shape[0]} rows (pilot 256, lam {task.lam:g}): float32 "
+        f"on the card vs float64 scoring of the same pilot rel {r32:.4e} (bound "
+        f"{LEVERAGE_FP32_BOUND:g}); the float64 scoring against float64 exact scores: ratio "
+        f"range [{float(ratio.min()):.4e}, {float(ratio.max()):.10f}] (the estimator is the "
+        f"exact score of the pilot's Nystrom kernel, never above the exact one: bound 1 + "
+        f"{LEVERAGE_RATIO_SLACK:g}), median {float(ratio.median()):.4f}, correlation of the "
+        f"float32 scores with the exact ones {corr:.4f}; sum of the exact scores (effective "
+        f"dimension) {float(exact.sum()):.2f} against the pilot's 256 rows")
+    check(r32 <= LEVERAGE_FP32_BOUND, f"float32 leverage scores off float64 by {r32:.4e}")
+    check(float(ratio.max()) <= 1.0 + LEVERAGE_RATIO_SLACK and float(ratio.min()) > 0.0,
+          "approximate leverage scores above the exact ones or not positive")
 
 
 def phase_bf16(torch, args, main) -> list[dict]:
@@ -1223,16 +1545,18 @@ def sweep_witness(torch, km, spec, X, C, u, tag: str, kernels=None):
     bounds the magnitudes of the terms of both sums: w cancels to far below
     S, and a per-center rounding (of ||c_j||^2, say) moves every term of
     that center together. Each |w_j - w64_j| is held to PRED_RTOL * S_j.
-    ``kernels`` maps a name to a callable giving that kernel's w (default:
-    B1). Returns ({name: kernel result}, float32 twin result)."""
+    ``u`` is (M,) or (M, p); ``kernels`` maps a name to a callable giving
+    that kernel's w (default: B1). Returns ({name: kernel result}, float32
+    twin result)."""
     check(spec.kind == "gaussian", f"sweep witness needs K >= 0, not {spec.kind}")
     if kernels is None:
         kernels = {"B1": lambda: km.fused_sweep(X, C, u, spec=spec)}
     ws = {name: fn() for name, fn in kernels.items()}
-    w32 = km.fused_sweep_plain(X, C, u[:, None], None, spec=spec)[0][:, 0]
-    w64 = km.fused_sweep_plain(X.double(), C.double(), u.double()[:, None], None,
-                               spec=spec)[0][:, 0]
-    S = km.fused_sweep_plain(X, C, u.abs()[:, None], None, spec=spec)[0][:, 0].double()
+    U = u[:, None] if u.ndim == 1 else u
+    w32 = km.fused_sweep_plain(X, C, U, None, spec=spec)[0].reshape(u.shape)
+    w64 = km.fused_sweep_plain(X.double(), C.double(), U.double(), None,
+                               spec=spec)[0].reshape(u.shape)
+    S = km.fused_sweep_plain(X, C, U.abs(), None, spec=spec)[0].reshape(u.shape).double()
     limit = PRED_RTOL * S + 1e-12
     rt = float(((w32.double() - w64).abs() / limit).max())
     for name, w in ws.items():
@@ -1480,7 +1804,7 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_times(torch, main, msd, bf16_rows) -> list[dict]:
+def phase_times(torch, main, msd, bf16_rows, path) -> list[dict]:
     from repro_torch.kernels import kernel_matvec as km
     X, Xt, Cc, alpha, spec = main["X"], main["Xt"], main["centers"], main["alpha"], main["spec"]
     n, d = X.shape
@@ -1539,6 +1863,8 @@ def phase_times(torch, main, msd, bf16_rows) -> list[dict]:
     rows.append(dict(name="kernel_matmul", ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                      max_abs_err=abs_err, shape=f"m={m} n={M} d={d} p=1"))
 
+    rows += width_times(torch, km, main)
+
     # B3 at a K_nM-cache row block (full route), then at K_MM's shape
     # (symmetric route; the kernels line's entry)
     pairwise_times(torch, km, X[:65_536], Cc, spec, "a K_nM-cache row block")
@@ -1550,6 +1876,11 @@ def phase_times(torch, main, msd, bf16_rows) -> list[dict]:
               "sharded_sweep": msd["jcounts"]["sharded_sweep"]}
     for r in bf16_rows:   # launches from the bf16 fit and the forced bf16 sweep
         counts[r["name"]] = r["launches"]
+    # the path fit's: its 20 CG sweeps of width 8 ran as 40 width-4 launches
+    # (the one other B1 launch is the width-1 right-hand side, as its check
+    # of 41 pins), and its one stacked apply of width 8 as the 2 B2 launches
+    counts["fused_sweep_p4"] = counts["fused_sweep_p8"] = path["counts"]["fused_sweep"] - 1
+    counts["kernel_matmul_p8"] = path["counts"]["kernel_matmul"]
     kernels = []
     for r in rows + bf16_rows:
         lib = r.get("library_ms")
@@ -1565,6 +1896,55 @@ def phase_times(torch, main, msd, bf16_rows) -> list[dict]:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": lib,
         })
     return kernels
+
+
+def width_times(torch, km, main) -> list[dict]:
+    """B1 at the SUSY sweep shape with a right-hand side of 4 columns (one
+    launch) and of 8 (two launches of 4: the lam path's stacked sweep), and
+    B2 at the predict shape with 8 columns (the path's one stacked apply),
+    each against its float32 twin (the fp32 tolerance of the kernel checks;
+    B1 also entry by entry against a float64 twin, ``sweep_witness``) and
+    timed beside the twin and the
+    bound of its own width: B1 n M (2d + 10 + 4p) operations over X, C, u
+    and w read or written once, B2 m n (2d + 10 + 2p)."""
+    X, Xt, Cc, spec = main["X"], main["Xt"], main["centers"], main["spec"]
+    n, d = X.shape
+    M, m = Cc.shape[0], Xt.shape[0]
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    rows = []
+    for p in (4, 8):
+        U = torch.randn(M, p, generator=g, device=DEVICE)
+        sweep = lambda: km.fused_sweep(X, Cc, U, spec=spec)
+        groups = -(-p // km.MAX_P)
+        ws, ref = sweep_witness(torch, km, spec, X, Cc, U,
+                                f"n={n} M={M} p={p} ({groups} launch(es))", {"B1": sweep})
+        abs_err, ratio = close_err(ws["B1"], ref)
+        again = torch.equal(ws["B1"], sweep())
+        say(f"[times] B1 n={n} M={M} d={d} p={p} ({groups} launch(es)): vs twin max "
+            f"abs err {abs_err:.3e}, ratio {ratio:.4f}; two runs bit-equal: {again}")
+        check(ratio <= 1.0 and again, f"B1 at p={p} is off its twin or not deterministic")
+        ms = time_cuda(torch, sweep, 5)
+        plain = time_cuda(torch, lambda: km.fused_sweep_plain(X, Cc, U, None, spec=spec), 2)
+        b, by = bound(n * M * (2 * d + 10 + 4 * p), 4 * (n * d + M * d + 2 * M * p))
+        rows.append(dict(name=f"fused_sweep_p{p}", base="fused_sweep", ms=ms, plain_ms=plain,
+                         bound_ms=b, bound_by=by, max_abs_err=abs_err,
+                         shape=f"n={n} M={M} d={d} p={p}"))
+    V = torch.randn(M, 8, generator=g, device=DEVICE)
+    mm = lambda: km.kernel_matmul(Xt, Cc, V, spec=spec)
+    out = mm()
+    ref = km.kernel_matmul_plain(Xt, Cc, V, spec=spec)
+    abs_err, ratio = close_err(out, ref)
+    again = torch.equal(out, mm())
+    say(f"[times] B2 m={m} n={M} d={d} p=8 (2 launches): vs twin max abs err {abs_err:.3e}, "
+        f"ratio {ratio:.4f}; two runs bit-equal: {again}")
+    check(ratio <= 1.0 and again, "B2 at p=8 is off its twin or not deterministic")
+    ms = time_cuda(torch, mm, 10)
+    plain = time_cuda(torch, lambda: km.kernel_matmul_plain(Xt, Cc, V, spec=spec), 3)
+    b, by = bound(m * M * (2 * d + 10 + 2 * 8), 4 * (m * d + M * d + M * 8 + m * 8))
+    rows.append(dict(name="kernel_matmul_p8", base="kernel_matmul", ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, max_abs_err=abs_err,
+                     shape=f"m={m} n={M} d={d} p=8"))
+    return rows
 
 
 def pairwise_times(torch, km, A, B, spec, tag: str, plain: bool = False) -> dict:
@@ -1723,21 +2103,31 @@ def breakdown(torch, tag: str, fn, each: bool = False) -> None:
     (``torch.profiler``): a blocked schedule's launches; ``each`` also lists
     every launch's time in launch order. The profiler has returned no
     device operation for a whole call (B3 at MillionSongs' K_MM; B2 at the
-    predict shape) and dropped a call's first one at times, so each profile
-    records one call after a warm-up step of its own (a ``schedule`` of one
-    warm-up and one active step), and an empty profile is taken again, up
-    to five times in all."""
+    predict shape) and dropped a call's first one at times: after minutes
+    of float64 work on the card its device timestamps stood 0.5 to 2 s off
+    its window on the host's clock, and it drops what falls outside (a
+    probe on the H100: 2 of 12 profiles of B2 and B3 kept at pads up to
+    0.5 s, 12 of 12 at 2 s). So each profile records one call after a
+    warm-up step of its own (a ``schedule`` of one warm-up and one active
+    step), the active step idles PROFILE_PAD seconds before and after the
+    call, and an empty profile is taken again with the pad doubled, up to
+    five times in all."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for attempt in range(5):
+        pad = PROFILE_PAD * 2 ** attempt
+        if attempt:
+            say(f"[times] {tag}: the profile came back empty; again with {pad:g} s pads")
         held: dict = {}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                      on_trace_ready=lambda p: held.update(events=list(p.events()))) as prof:
-            for _ in range(2):
+            for step in range(2):
+                time.sleep(pad * step)
                 fn()
                 torch.cuda.synchronize()
+                time.sleep(pad * step)
                 prof.step()
         events = [e for e in held.get("events", [])   # not the step's own span
                   if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1853,12 +2243,14 @@ def main(argv=None) -> int:
         return 0
     main_res = phase_main(torch, args)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the SUSY phase")
+    path_res = phase_path(torch, args, main_res)
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the lam-path phase")
     bf16_rows = phase_bf16(torch, args, main_res)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the bf16 SUSY phase")
     msd_res = phase_msd(torch, args)
     bf16_rows.append(msd_bf16_sweep(torch, msd_res))
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the MillionSongs phase")
-    kernels = phase_times(torch, main_res, msd_res, bf16_rows)
+    kernels = phase_times(torch, main_res, msd_res, bf16_rows, path_res)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, {build_s:.1f} s of it the build")
     say(f"card: {card}")
     say(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@
 The port of the JAX package ``repro`` (which stays the reference). Module
 names follow ``repro``'s, so each module's counterpart is easy to find:
 
-* ``repro_torch.core``    — kernels, CG, preconditioner, Nystrom, the fit;
+* ``repro_torch.core``    — kernels, CG, preconditioner, Nystrom, the fit,
+  the lam path and the baselines;
 * ``repro_torch.ops``     — the ``KernelOps`` registry: ``"torch"`` (plain
   reference) and ``"cuda"`` (the hand-written kernels);
 * ``repro_torch.kernels`` — the CUDA kernels' wrappers, their plain twins,
@@ -16,11 +17,15 @@ Importing the package compiles nothing: the kernels build at first launch.
 from repro_torch.core import (
     FalkonConfig,
     FalkonEstimator,
+    FalkonPathResult,
     FalkonState,
     falkon_fit,
+    falkon_fit_path,
     falkon_solve,
+    falkon_solve_path,
     make_kernel,
 )
 
-__all__ = ["FalkonConfig", "FalkonEstimator", "FalkonState", "falkon_fit",
-           "falkon_solve", "make_kernel"]
+__all__ = ["FalkonConfig", "FalkonEstimator", "FalkonPathResult", "FalkonState",
+           "falkon_fit", "falkon_fit_path", "falkon_solve", "falkon_solve_path",
+           "make_kernel"]

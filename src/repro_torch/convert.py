@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.falkon import FalkonEstimator, resolve_device
 from repro_torch.core.kernels import KernelSpec, kernel_from_spec
-from repro_torch.core.preconditioner import Preconditioner
+from repro_torch.core.preconditioner import Preconditioner, PreconditionerPath
 
 
 def _tensor(a, device, dtype=None):
@@ -32,6 +32,19 @@ def preconditioner_from_numpy(d: Mapping, *, device: str = "cuda") -> Preconditi
         T=T, A=_tensor(d["A"], dev), Q=_tensor(d.get("Q"), dev),
         D=_tensor(d.get("D"), dev), n=_tensor(d["n"], dev, T.dtype),
         diag_T=bool(d.get("diag_T", False)))
+
+
+def preconditioner_path_from_numpy(d: Mapping, *, device: str = "cuda") -> PreconditionerPath:
+    """A port ``PreconditionerPath`` from ``{"T", "A", "Q", "D", "lams", "n",
+    "diag_T"}`` (``A`` the (L, q, q) stack; ``Q``, ``D`` and ``diag_T``
+    optional), on ``device`` (the card unless the caller asks for the CPU;
+    without a card the default raises)."""
+    dev = resolve_device(device)
+    T = _tensor(d["T"], dev)
+    return PreconditionerPath(
+        T=T, A=_tensor(d["A"], dev), Q=_tensor(d.get("Q"), dev),
+        D=_tensor(d.get("D"), dev), lams=_tensor(d["lams"], dev, T.dtype),
+        n=_tensor(d["n"], dev, T.dtype), diag_T=bool(d.get("diag_T", False)))
 
 
 def estimator_from_numpy(d: Mapping, spec, *, precond: Mapping | None = None,

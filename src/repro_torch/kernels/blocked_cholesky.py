@@ -92,6 +92,8 @@ class FactorStats:
     ``copy_seconds`` and ``tile_seconds`` split the factorization's wall time
     between those copies (with the host gathers and scatters of strided
     panels) and the tile operations, each timed to a synchronised end.
+    ``host_copy_bytes`` counts the host copies of T T^T that a lam path
+    makes so that each lam factors an unspoiled matrix.
     """
 
     peak_device_bytes: int = 0
@@ -102,6 +104,7 @@ class FactorStats:
     measured_peak_device_bytes: int = 0
     copy_seconds: float = 0.0
     tile_seconds: float = 0.0
+    host_copy_bytes: int = 0
     _device: torch.device | None = dataclasses.field(default=None, repr=False)
     _base: int = dataclasses.field(default=0, repr=False)
 

@@ -218,7 +218,6 @@ def test_multiclass_fit_on_the_cuda_backend():
 def test_unported_options_refuse():
     base = dict(device="cpu")
     for kw, item in ((dict(precision=PrecisionPolicy(name="fp16", storage="float16")), "A7"),
-                     (dict(center_selection="leverage"), "A6"),
                      (dict(knm_cache="auto"), "A11"),
                      (dict(mesh=object()), "A14")):
         with pytest.raises(NotImplementedError, match=item):
@@ -227,7 +226,9 @@ def test_unported_options_refuse():
                dict(center_selection="greedy"), dict(dtype="float16")):
         with pytest.raises(ValueError):
             FalkonConfig(**base, **kw)
-    for fn, item in ((tfalkon.falkon_fit_path, "A6"), (tfalkon.falkon_fit_streaming, "A8"),
+    for fn, item in ((tfalkon.falkon_fit_streaming, "A8"),
+                     (tfalkon.falkon_fit_path_streaming, "A8"),
+                     (tfalkon.falkon_solve_path_streaming, "A8"),
                      (tfalkon.falkon_fit_minibatch, "A12")):
         with pytest.raises(NotImplementedError, match=item):
             fn()

@@ -9,7 +9,10 @@ medians of CUDA events, each line with the card's name and power limit.
 ``--hash`` also prints the sha256 of each B1, B2 and B3 result's bytes.
 ``--bf16`` also times the bf16 compensated builds of B1, B2 and B4 (the bf16
 policy's: X and C in bf16, u in fp32, B4's t spilled in bf16) on the same
-inputs, rounded to bf16; only a checkout that has them takes it. Rows are
+inputs, rounded to bf16; only a checkout that has them takes it. ``--p``
+times B1 and B2 (SUSY's sweep and predict shapes) at each listed number of
+right-hand-side columns (the lam path stacks L * p of them; past 4 they run
+in column groups of 4, one launch each). Rows are
 ``torch.randn`` from ``--seed`` and the centers a random subset of them;
 gaussian sigma as the paper's tasks (4 for d = 18, 6 for d = 90). Meant for
 comparing two checkouts in turns on one card: ``--tree`` imports the kernels
@@ -17,7 +20,7 @@ of another checkout (default: this one), on the same inputs. Needs a CUDA
 card. From the repository root:
 
     python3 tools/kernel_times.py [--only b1,b2,b3,b4] [--reps 5] [--seed 0]
-                                  [--tree DIR] [--hash] [--bf16]
+                                  [--tree DIR] [--hash] [--bf16] [--p 1,4,8]
 """
 from __future__ import annotations
 
@@ -49,6 +52,8 @@ def main() -> int:
                     help="print the sha256 of each B1, B2 and B3 result")
     ap.add_argument("--bf16", action="store_true",
                     help="also time the bf16 compensated builds of B1, B2 and B4")
+    ap.add_argument("--p", default="1",
+                    help="comma-separated column widths of B1 and B2 at the SUSY shapes")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
     import torch
@@ -87,12 +92,17 @@ def main() -> int:
     bf = torch.bfloat16
 
     only = set(args.only.split(","))
+    # widths past 1 (p = 1 is the vector u every run times)
+    widths = [int(w) for w in args.p.split(",") if int(w) > 1]
     for n, M, d, sigma in ((4_000_000, 10_000, 18, 4.0), (463_715, 50_000, 90, 6.0)):
         X, C = data(n, M, d)
         spec = make_kernel("gaussian", sigma=sigma).spec
         u = torch.randn(M, generator=g, device="cuda")
         if "b1" in only:
             report(f"B1 n={n} M={M} d={d}", lambda: km.fused_sweep(X, C, u, spec=spec))
+        for p in (widths if "b1" in only and d == 18 else ()):
+            U = torch.randn(M, p, generator=g, device="cuda")
+            report(f"B1 n={n} M={M} d={d} p={p}", lambda: km.fused_sweep(X, C, U, spec=spec))
         if "b1" in only and args.bf16:
             Xq, Cq = X.to(bf), C.to(bf)
             report(f"B1 bf16 n={n} M={M} d={d}",
@@ -100,6 +110,10 @@ def main() -> int:
         if "b2" in only and d == 18:
             Xt = torch.randn(500_000, d, generator=g, device="cuda")
             report(f"B2 m={Xt.shape[0]} n={M} d={d}", lambda: km.kernel_matmul(Xt, C, u, spec=spec))
+            for p in widths:
+                V = torch.randn(M, p, generator=g, device="cuda")
+                report(f"B2 m={Xt.shape[0]} n={M} d={d} p={p}",
+                       lambda: km.kernel_matmul(Xt, C, V, spec=spec))
             if args.bf16:
                 Xtq, Cq = Xt.to(bf), C.to(bf)
                 report(f"B2 bf16 m={Xt.shape[0]} n={M} d={d}",
