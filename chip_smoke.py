@@ -95,6 +95,27 @@ result line:
                the fp32 fit's data and seed: stage times, device peak, test
                error and launches by build (47 bf16 B1), beside the fp32
                fit's.
+   stream   — the host-streamed fits at SUSY's full size, X, y and the
+               test rows as host numpy in chunks of 2^18 rows (16 chunks,
+               the last padded and masked): the fp32 fit on the main fit's
+               centers (21 passes: 336 B1, 1 B3, 0 B4 launches, every chunk
+               sweep at X (262,144, 18)) and ``predict_stream`` (2 B2), test
+               error within 0.002 of the main fit's; one streamed sweep
+               against a float64 twin, bit-equal at prefetch 2 and 0 over
+               two runs each; a full chunk without a mask bit-equal to one
+               with a ones mask; n = 20,000, M = 500, lam = 1e-3 streamed
+               against in-core predictions (1e-3); the device peaks of two
+               fits drawing their own centers at n = 10^6 and 4x10^6 (64 MiB
+               apart at most, below the in-core fit's); the bf16 fit (bf16
+               chunks; its test error beside the in-core bf16 fit's and an
+               in-core solve's on rolled rows: at lam = 1e-6 the order of
+               the sums alone moves it past 0.002), X in one chunk solved
+               bit-equal to the in-core solve, fp32 and bf16, and the
+               n = 20,000 bf16 fit against in-core (1e-2); the 8-lam path
+               (every lam within 0.002 of the in-core path's); the
+               streamed solve beside the in-core one, prefetch 2 beside 0,
+               chunks of 2^15 beside 2^18, the loader alone; B1 at the
+               chunk shape for the kernels line.
 6. msd      — the large-M fit at the paper's MillionSongs size (synthetic
                YearPredictionMSD split: 463,715 / 51,630 rows, d = 90,
                gaussian sigma = 6, lam = 1e-6, M = 5x10^4, t = 20): the
@@ -128,7 +149,9 @@ result line:
                entry: SUSY's K_MM; the bf16 builds of B1, B2 and B4 as
                entries of their own, their launches from the bf16 fit and
                the bf16 B4 sweep; B1 at p = 4 and 8 and B2 at p = 8 as
-               entries of their own, their launches from the path fit).
+               entries of their own, their launches from the path fit; B1
+               at a streamed chunk, 262,144 rows, its launches from the
+               streamed fp32 fit).
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -277,6 +300,21 @@ PROFILE_PAD = 2.0
 #: the bf16 policy's error against float64 on unquantized inputs, as the
 #: reference documents it (printed, not held: C.1 measures 1.005e-2)
 POLICY_BOUND = 1e-2
+#: the streamed fits' chunk height (SUSY: 16 chunks, the last of 67,840
+#: rows padded) and the smaller one timed beside it
+STREAM_CHUNK = 2**18
+STREAM_SMALL_CHUNK = 2**15
+#: a streamed fit's test error against the in-core fit's, and its device
+#: peak at n = 10^6 against n = 4x10^6
+STREAM_ERR = 0.002
+STREAM_PEAK_AGREE = 64 * 2**20
+#: the fits where rounding is tame: n, M, lam, and the fp32 predictions'
+#: bound (bf16: POLICY_BOUND)
+STREAM_SMALL = (20_000, 500, 1e-3)
+STREAM_PRED_TOL = 1e-3
+#: the rows an in-core bf16 solve is rolled by, to show what the order of
+#: the sums alone does to its test error
+STREAM_ROLL = 786_432
 SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
 SOURCE_BLOCKED = "src/repro_torch/kernels/csrc/blocked_cholesky.cu"
 DEVICE = "cuda"
@@ -299,8 +337,10 @@ SOURCES.update(fused_sweep_bf16c="src/repro_torch/kernels/csrc/kernel_matvec_bf1
                sharded_sweep_bf16c="src/repro_torch/kernels/kernel_matvec.py")
 SOURCES.update({name: SOURCE_BLOCKED for name in ("potrf_tile", "trsm_panel",
                                                   "trailing_update")})
-#: B1 and B2 timed at the lam path's column widths (the same builds)
-SOURCES.update(fused_sweep_p4=SOURCE, fused_sweep_p8=SOURCE, kernel_matmul_p8=SOURCE)
+#: B1 and B2 timed at the lam path's column widths (the same builds), and
+#: B1 at a streamed fit's chunk
+SOURCES.update(fused_sweep_p4=SOURCE, fused_sweep_p8=SOURCE, kernel_matmul_p8=SOURCE,
+               fused_sweep_chunk=SOURCE)
 
 
 class SmokeFailure(RuntimeError):
@@ -1082,7 +1122,8 @@ def phase_path(torch, args, main) -> dict:
     grid's smallest lam (no cond estimate) timed beside it, its alpha
     against the path's; then the small checks (``path_small``) and the
     leverage fit (``path_leverage``). Returns the path fit's launch counts,
-    which the kernels line reads."""
+    which the kernels line reads, and every lam's test error, which the
+    stream phase reads."""
     from repro_torch.core import FalkonConfig, falkon_fit, falkon_fit_path
     from repro_torch.kernels import kernel_matvec as km
     from repro_torch.ops import CountingOps
@@ -1148,10 +1189,13 @@ def phase_path(torch, args, main) -> dict:
         f"beside {L} x the single fit {L * single_s:.4f} s (solves {L * stimes['solve']:.4f})")
     against_single(torch, args, main, f"lam={lam0:g}, against this single fit", res, 0,
                    est0.predict(Xt), est0.alpha)
+    errs = [float((torch.sign(e.predict(Xt)) != yt).float().mean()) for e in res.estimators]
+    say("[path] test error per lam: " + ", ".join(
+        f"{lam:.3g}: {e:.6f}" for lam, e in zip(PATH_LAMS, errs)))
     del res, est0
     path_small(torch, args, main)
     path_leverage(torch, args, main)
-    return dict(counts=counts)
+    return dict(counts=counts, errs=errs)
 
 
 def against_single(torch, args, main, tag: str, res, i: int, single_pred,
@@ -1348,7 +1392,8 @@ def phase_bf16(torch, args, main) -> list[dict]:
     unquantized ones (the policy's error), B1 bit-equal over two runs; then
     the full-size fit with ``precision="bf16"`` on the fp32 fit's data and
     generator seed, its stage times, device peak and test error beside the
-    fp32 fit's, and its launches. Returns the kernels line's rows."""
+    fp32 fit's, and its launches. Returns the kernels line's rows and the
+    bf16 fit's test error."""
     from repro_torch.core import FalkonConfig, falkon_fit
     from repro_torch.kernels import kernel_matvec as km
     bf = torch.bfloat16
@@ -1457,7 +1502,251 @@ def phase_bf16(torch, args, main) -> list[dict]:
     check(err < 0.4, f"bf16 fit test error {err} no better than chance")
     for r in rows:
         r["launches"] = variants[r["name"]]
-    return rows
+    return rows, err
+
+
+def sign_err(torch, pred, yt) -> float:
+    return float((torch.sign(pred) != yt).float().mean())
+
+
+def synced(torch, fn):
+    """(fn's result, its synchronised wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_stream(torch, args, main, path, bf16_err, card: str) -> dict:
+    """The host-streamed fits (A8) at SUSY's full size, from host numpy
+    copies of the main phase's rows in chunks of STREAM_CHUNK: the fp32 fit
+    on the main fit's centers (B1 launched once per chunk and pass, one
+    chunk shape, B3 once, no B4) and ``predict_stream`` over the test rows;
+    one streamed sweep against a float64 twin and bit-equal over prefetch 2
+    and 0; a tame-rounding fit against the in-core fit; the device peaks of
+    two fits that draw their own centers at n = 10^6 and 4x10^6; the bf16
+    and 8-lam path fits streamed; the streamed solve beside the in-core one,
+    prefetch 2 beside 0, chunks of 2^15 beside 2^18 and the loader alone.
+    Returns the kernels line's row of B1 at the chunk shape."""
+    from repro_torch.core import (FalkonConfig, falkon_fit, falkon_fit_path_streaming,
+                                  falkon_fit_streaming, falkon_solve, falkon_solve_streaming)
+    from repro_torch.data import ArrayChunkSource, StreamingLoader, streaming_sweep
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.ops import CountingOps
+    t_phase = time.perf_counter()
+    X, y, Xt, yt, C, spec = (main[k] for k in ("X", "y", "Xt", "yt", "centers", "spec"))
+    task, t, CH = main["task"], 20, STREAM_CHUNK
+    (n, d), M = X.shape, C.shape[0]
+    Xh, yh, Xth = (a.cpu().numpy() for a in (X, y, Xt))
+    src = ArrayChunkSource(Xh, yh, chunk_rows=CH)
+    tsrc = ArrayChunkSource(Xth, chunk_rows=CH)
+    chunks = src.num_chunks
+    config = susy_config(FalkonConfig, task)
+    say(f"[stream] host X {Xh.nbytes} B in {chunks} chunks of {CH} rows (the last "
+        f"{n - (chunks - 1) * CH}, padded), {Xh.nbytes / chunks / 1e6:.1f} MB a chunk")
+
+    # the fp32 fit on the main fit's centers, and its predictions
+    ops = CountingOps(config.make_ops())
+    times: dict = {}
+    km.reset_launch_counts()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (est, state), fit_s = synced(torch, lambda: falkon_fit_streaming(
+        args.seed, src, config, centers=C, ops=ops, stage_times=times))
+    peak = torch.cuda.max_memory_allocated() - before
+    counts = km.launch_counts()
+    say("[stream] fp32 fit stage seconds: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items() if isinstance(v, float))
+        + f"; fit total {fit_s:.4f} (in-core fit {main['fit_s']:.4f}, with the cond estimate)")
+    say(f"[stream] launches {counts}; sweep calls {ops.sweeps}, X shapes {ops.sweep_shapes}; "
+        f"device peak above the {before} B held before it: {peak} B ({peak / 2**30:.3f} GiB)")
+    want = dict(fused_sweep=(t + 1) * chunks, pairwise_kernel=1, sharded_sweep=0,
+                kernel_matmul=0)
+    check(all(counts[k] == v for k, v in want.items()),
+          f"streamed fit launches {counts}, expected {want}")
+    check(ops.sweep_shapes == {((CH, d), torch.float32)},
+          f"chunk sweeps saw X shapes {ops.sweep_shapes}, not one ({CH}, {d})")
+    res = state.residual_norms.cpu()
+    check(bool(torch.isfinite(state.alpha).all()) and float(res[-1]) < float(res[0]),
+          "the streamed fit's alpha is not finite or its residual did not fall")
+    km.reset_launch_counts()
+    pred = est.predict_stream(StreamingLoader(tsrc, device=DEVICE))
+    b2 = km.launch_counts()["kernel_matmul"]
+    err = sign_err(torch, pred, yt)
+    say(f"[stream] predict_stream over {Xth.shape[0]} rows: {b2} B2 launches; test error "
+        f"{err:.6f} (in-core fit {main['err']:.6f}, bound {STREAM_ERR} apart); predictions "
+        f"{rel(pred, main['pred']):.4e} from the in-core fit's, {rel(pred, est.predict(Xt)):.4e} "
+        "from its own in-core predict")
+    check(b2 == tsrc.num_chunks and pred.shape == (Xth.shape[0],),
+          f"predict_stream launched B2 {b2} times for {tsrc.num_chunks} chunks")
+    check(abs(err - main["err"]) <= STREAM_ERR, f"streamed test error {err} vs {main['err']}")
+
+    # races: one streamed sweep against a float64 twin, bit-equal over prefetch 2 and 0
+    u = torch.randn(M, generator=torch.Generator(device=DEVICE).manual_seed(17), device=DEVICE)
+    sweep_ops = config.make_ops()
+
+    def streamed(pf):
+        return streaming_sweep(sweep_ops, StreamingLoader(src, device=DEVICE, prefetch=pf), C,
+                               u, use_targets=False)
+    ws, _ = sweep_witness(torch, km, spec, X, C, u, f"streamed n={n} M={M} chunk {CH}",
+                          {"streamed B1": lambda: streamed(2)})
+    same = [torch.equal(ws["streamed B1"], streamed(pf)) for pf in (2, 0, 2, 0)]
+    Xc = X[:CH]
+    ones = torch.equal(km.fused_sweep(Xc, C, u, spec=spec),
+                       km.fused_sweep(Xc, C, u, spec=spec,
+                                      row_mask=torch.ones(CH, device=DEVICE)))
+    say(f"[stream] streamed sweep at prefetch 2, 0, 2, 0 bit-equal to the first: {same}; a "
+        f"full chunk without a mask bit-equal to one with a ones mask: {ones}")
+    check(all(same) and ones, "streamed sweeps differ between runs or prefetch depths")
+
+    # fits where rounding is tame: streamed against in-core on the same centers
+    ns, ms, lam_s = STREAM_SMALL
+    for prec, tol in (("fp32", STREAM_PRED_TOL), ("bf16", POLICY_BOUND)):
+        cfg_s = susy_config(FalkonConfig, task, num_centers=ms, lam=lam_s, estimate_cond=False,
+                            precision=prec)
+        est_i = falkon_fit(args.seed, X[:ns], y[:ns], cfg_s)[0]
+        est_s = falkon_fit_streaming(args.seed, ArrayChunkSource(Xh[:ns], yh[:ns],
+                                                                 chunk_rows=8192),
+                                     cfg_s, centers=est_i.centers)[0]
+        r = rel(est_s.predict(Xt[:ns]), est_i.predict(Xt[:ns]))
+        say(f"[stream] n={ns} M={ms} lam={lam_s:g} {prec}, chunks of 8192: streamed against "
+            f"in-core predictions rel {r:.4e} (bound {tol:g}); alpha rel "
+            f"{rel(est_s.alpha, est_i.alpha):.4e}")
+        check(r <= tol, f"the small streamed {prec} fit stands {r:.4e} from the in-core fit")
+    del est_i, est_s
+
+    # memory that does not grow with n: own centers at n = 10^6 and 4x10^6
+    peaks = {}
+    for nm in (1_000_000, n):
+        s_m = ArrayChunkSource(Xh[:nm], yh[:nm], chunk_rows=CH)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tm: dict = {}
+        e_m, fs = synced(torch, lambda: falkon_fit_streaming(args.seed, s_m, config,
+                                                             stage_times=tm))
+        peaks[nm] = torch.cuda.max_memory_allocated() - base
+        say(f"[stream] n={nm}, own centers: fit {fs:.4f} s (centers {tm['centers']:.4f}, solve "
+            f"{tm['solve']:.4f}), device peak {peaks[nm]} B ({peaks[nm] / 2**30:.3f} GiB), "
+            f"{len(torch.unique(e_m[0].centers, dim=0))} distinct centers")
+        del e_m
+    p1, p4 = peaks[1_000_000], peaks[n]
+    say(f"[stream] device peaks {p1} / {p4} B apart {abs(p4 - p1)} B (bound {STREAM_PEAK_AGREE}); "
+        f"in-core fit {main['peak']} B ({main['peak'] / 2**30:.3f} GiB)")
+    check(abs(p4 - p1) <= STREAM_PEAK_AGREE and p4 < main["peak"],
+          f"streamed device peaks {p1}, {p4} grow with n or reach the in-core {main['peak']}")
+
+    # the bf16 policy, streamed: bf16 chunks over the bus
+    cfg_b = susy_config(FalkonConfig, task, precision="bf16")
+    ops_b = CountingOps(cfg_b.make_ops())
+    tb: dict = {}
+    km.reset_launch_counts()
+    (est_b, st_b), fb = synced(torch, lambda: falkon_fit_streaming(
+        args.seed, src, cfg_b, centers=C, ops=ops_b, stage_times=tb))
+    variants = km.variant_launch_counts()
+    err_b = sign_err(torch, est_b.predict_stream(StreamingLoader(tsrc, device=DEVICE,
+                                                                    dtype=torch.bfloat16)), yt)
+    say(f"[stream] bf16 fit {fb:.4f} s (solve {tb['solve']:.4f}), X shapes "
+        f"{ops_b.sweep_shapes}, {Xh.size * 2 / chunks / 1e6:.1f} MB a chunk over the bus; "
+        f"launches by build: " + ", ".join(f"{k} {v}" for k, v in variants.items() if v)
+        + f"; test error {err_b:.6f} (in-core bf16 fit {bf16_err:.6f})")
+    check(ops_b.sweep_shapes == {((CH, d), torch.bfloat16)}
+          and variants["fused_sweep_bf16c"] == (t + 1) * chunks,
+          f"the bf16 streamed fit's chunks or sweeps were not bf16: {ops_b.sweep_shapes} "
+          f"{variants}")
+    check(err_b < 0.4, f"bf16 streamed fit test error {err_b} no better than chance")
+    # At lam = 1e-6 the order of the sums alone moves the bf16 fit's test
+    # error by more than 0.002 (bf16 CG iterates round at 2^-8): so the
+    # streamed solve is held bit-equal to the in-core solve where both sum
+    # alike (X in one chunk), fp32 and bf16, and the 16-chunk fit's error is
+    # printed beside an in-core bf16 solve on rows rolled by STREAM_ROLL.
+    one = ArrayChunkSource(Xh, yh, chunk_rows=n)
+    for tag, cfg_x, pre_x in (("fp32", config, state.precond), ("bf16", cfg_b, st_b.precond)):
+        s1 = falkon_solve_streaming(StreamingLoader(one, device=DEVICE), C, pre_x, task.lam, t,
+                                    ops=cfg_x.make_ops())
+        si = falkon_solve(X, y, C, pre_x, est.kernel, task.lam, t, estimate_cond=False,
+                          ops=cfg_x.make_ops())
+        same = torch.equal(s1.alpha, si.alpha) and torch.equal(s1.residual_norms,
+                                                                  si.residual_norms)
+        say(f"[stream] {tag}: X streamed in one chunk, the solve bit-equal to the in-core "
+            f"falkon_solve(estimate_cond=False) on the same preconditioner: {same}")
+        check(same, f"the one-chunk streamed {tag} solve differs from the in-core solve")
+    Xr, yr = torch.roll(X, STREAM_ROLL, 0), torch.roll(y, STREAM_ROLL, 0)
+    sr = falkon_solve(Xr, yr, C, st_b.precond, est.kernel, task.lam, t, estimate_cond=False,
+                      ops=cfg_b.make_ops())
+    err_r = sign_err(torch, cfg_b.make_ops().apply(Xt, C, sr.alpha), yt)
+    say(f"[stream] bf16 test errors: streamed in {chunks} chunks {err_b:.6f}, in-core fit "
+        f"{bf16_err:.6f}, in-core solve on rows rolled by {STREAM_ROLL} {err_r:.6f} (the order "
+        "of the sums alone)")
+    del est_b, st_b, Xr, yr, sr
+
+    # the 8-lam path, streamed
+    tp: dict = {}
+    km.reset_launch_counts()
+    pres, fp = synced(torch, lambda: falkon_fit_path_streaming(
+        args.seed, src, config, PATH_LAMS, centers=C, stage_times=tp))
+    cp = km.launch_counts()
+    errs = [sign_err(torch, e.predict(Xt), yt) for e in pres.estimators]
+    say(f"[stream] 8-lam path fit {fp:.4f} s (solve {tp['solve']:.4f}), {cp['fused_sweep']} B1 "
+        "launches; test error per lam, streamed [in-core path]: " + ", ".join(
+            f"{lam:.3g}: {e:.6f} [{p:.6f}]" for lam, e, p in zip(PATH_LAMS, errs, path["errs"])))
+    check(cp["fused_sweep"] == chunks * (1 + t * 2), f"streamed path launched B1 {cp}")
+    check(all(abs(e - p) <= STREAM_ERR for e, p in zip(errs, path["errs"])),
+          "a streamed path lam's test error is off the in-core path's")
+    del pres
+
+    # timings: the streamed solve beside the in-core one on the same preconditioner
+    pre, kernel = state.precond, est.kernel
+    small = ArrayChunkSource(Xh, yh, chunk_rows=STREAM_SMALL_CHUNK)
+
+    def incore():
+        return falkon_solve(X, y, C, pre, kernel, task.lam, t, estimate_cond=False,
+                            ops=config.make_ops())
+
+    def solve_streamed(source, pf):
+        return falkon_solve_streaming(StreamingLoader(source, device=DEVICE, prefetch=pf), C, pre,
+                                      task.lam, t,
+                                      ops=config.make_ops())
+    runs = [("in-core", incore), ("streamed 2^18 prefetch 2", lambda: solve_streamed(src, 2)),
+            ("streamed 2^18 prefetch 0", lambda: solve_streamed(src, 0)),
+            ("streamed 2^15 prefetch 2", lambda: solve_streamed(small, 2))]
+    secs: dict = {name: [] for name, _ in runs}
+    for name, fn in runs + runs[::-1]:      # in turns: a, b, c, d, d, c, b, a
+        secs[name].append(synced(torch, fn)[1])
+
+    def loader_pass(pf):
+        for _ in StreamingLoader(src, device=DEVICE, prefetch=pf).iter_chunks(
+                with_targets=False):
+            pass
+    passes = {pf: [synced(torch, lambda: loader_pass(pf))[1] for _ in range(3)] for pf in (2, 0)}
+    say(f"[stream] {card}: solve seconds (t = 20, no cond estimate; two runs each, in turns): "
+        + "; ".join(f"{k} " + " ".join(f"{v:.4f}" for v in vs) for k, vs in secs.items()))
+    s_in, s_st = min(secs["in-core"]), min(secs["streamed 2^18 prefetch 2"])
+    say(f"[stream] streamed / in-core solve {s_st / s_in:.4f}; prefetch 0 / 2 "
+        f"{min(secs['streamed 2^18 prefetch 0']) / s_st:.4f}; chunks 2^15 / 2^18 "
+        f"{min(secs['streamed 2^15 prefetch 2']) / s_st:.4f}")
+    say(f"[stream] {card}: one pass of the loader alone, synchronised, no sweep ({Xh.nbytes} B "
+        "fp32): "
+        + "; ".join(f"prefetch {pf}: " + " ".join(f"{v * 1e3:.2f}" for v in vs) + " ms"
+                    for pf, vs in passes.items()))
+
+    # the kernels line's row: B1 at the chunk shape
+    sweep = lambda: km.fused_sweep(Xc, C, u, spec=spec)
+    abs_err, ratio = close_err(sweep(), km.fused_sweep_plain(Xc, C, u[:, None], None,
+                                                             spec=spec)[0][:, 0])
+    check(ratio <= 1.0, f"B1 at the chunk shape disagrees with its twin (ratio {ratio})")
+    ms = time_cuda(torch, sweep, 20)
+    plain = time_cuda(torch, lambda: km.fused_sweep_plain(Xc, C, u[:, None], None, spec=spec), 3)
+    b, by = bound(CH * M * (2 * d + 10 + 4), 4 * (CH * d + M * d + 2 * M))
+    say(f"[stream] {card}: B1 at the chunk shape n={CH} M={M} d={d}: kernel {ms:.4f} ms "
+        f"({chunks} a pass: {ms * chunks:.2f} ms), twin {plain:.4f} ms, bound {b:.4f} ms ({by}); "
+        f"max abs err {abs_err:.3e} (ratio {ratio:.4f}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(name="fused_sweep_chunk", base="fused_sweep", ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, max_abs_err=abs_err, launches=counts["fused_sweep"],
+                shape=f"n={CH} M={M} d={d} p=1")
 
 
 def msd_bf16_sweep(torch, msd) -> dict:
@@ -2245,8 +2534,10 @@ def main(argv=None) -> int:
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the SUSY phase")
     path_res = phase_path(torch, args, main_res)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the lam-path phase")
-    bf16_rows = phase_bf16(torch, args, main_res)
+    bf16_rows, bf16_err = phase_bf16(torch, args, main_res)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the bf16 SUSY phase")
+    bf16_rows.append(phase_stream(torch, args, main_res, path_res, bf16_err, card))
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the streaming phase")
     msd_res = phase_msd(torch, args)
     bf16_rows.append(msd_bf16_sweep(torch, msd_res))
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the MillionSongs phase")

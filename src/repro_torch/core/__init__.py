@@ -1,5 +1,5 @@
 """FALKON core: kernels, CG, preconditioner, Nystrom centers, the fit, the
-lam path and the baselines."""
+lam path, the host-streamed fits and the baselines."""
 from .baselines import KernelPredictor, krr_direct, krr_gradient, nystrom_direct, nystrom_gradient
 from .cg import CGResult, conjugate_gradient, conjugate_gradient_host
 from .falkon import (
@@ -8,8 +8,12 @@ from .falkon import (
     FalkonPathResult,
     FalkonPathState,
     FalkonState,
+    MinibatchConfig,
+    MinibatchResult,
+    MinibatchState,
     falkon_fit,
     falkon_fit_minibatch,
+    falkon_fit_minibatch_streaming,
     falkon_fit_path,
     falkon_fit_path_streaming,
     falkon_fit_streaming,
@@ -17,6 +21,8 @@ from .falkon import (
     falkon_solve_path,
     falkon_solve_path_streaming,
     falkon_solve_streaming,
+    minibatch_solve,
+    minibatch_solve_stream,
     resolve_device,
 )
 from .kernels import (
@@ -59,15 +65,18 @@ from .preconditioner import (Preconditioner, PreconditionerPath, make_preconditi
 __all__ = [
     "CGResult", "FalkonConfig", "FalkonEstimator", "FalkonPathResult", "FalkonPathState",
     "FalkonState", "GaussianKernel", "KernelPredictor", "KernelSpec", "LaplacianKernel",
-    "LeveragePilot", "LinearKernel", "Matern32Kernel", "NystromCenters", "PolynomialKernel",
+    "LeveragePilot", "LinearKernel", "Matern32Kernel", "MinibatchConfig", "MinibatchResult",
+    "MinibatchState", "NystromCenters", "PolynomialKernel",
     "Preconditioner", "PreconditionerPath", "approximate_leverage_scores",
     "approximate_leverage_scores_path", "available_kernels", "build_leverage_pilot",
     "cached_knm_apply", "cached_knm_matvec", "conjugate_gradient", "conjugate_gradient_host",
-    "exact_leverage_scores", "falkon_fit", "falkon_fit_minibatch", "falkon_fit_path",
+    "exact_leverage_scores", "falkon_fit", "falkon_fit_minibatch",
+    "falkon_fit_minibatch_streaming", "falkon_fit_path",
     "falkon_fit_path_streaming", "falkon_fit_streaming", "falkon_solve", "falkon_solve_path",
     "falkon_solve_path_streaming", "falkon_solve_streaming", "knm_apply", "knm_matvec",
     "krr_direct", "krr_gradient", "leverage_score_centers", "leverage_scores_from_pilot",
     "make_kernel", "make_knm_cache", "make_preconditioner", "make_preconditioner_path",
+    "minibatch_solve", "minibatch_solve_stream",
     "nystrom_direct", "nystrom_gradient", "resolve_device", "select_centers", "spec_of",
     "streaming_knm_apply", "streaming_knm_matvec", "tile_eval", "tile_transform",
     "uniform_centers",

@@ -20,12 +20,22 @@ columns of every CG sweep (``falkon_solve_path``), which the "cuda" backend
 runs in column groups of at most 4, one launch each. Centers may be drawn
 by approximate leverage scores (``center_selection="leverage"``).
 
+``falkon_fit_streaming`` and ``falkon_fit_path_streaming`` fit from a
+host ``ChunkSource`` (``repro_torch.data.streaming``): X is never resident
+on the device at once, every CG pass streams its chunks through a
+``StreamingLoader``, and ``FalkonEstimator.predict_stream`` scores a
+stream the same way.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP.md item: storage types other than float32 and bfloat16 (A7), the
-K_nM cache (A11), a mesh (A14), streaming fits and solves (A8) and
-mini-batch fits (A12). A large M routes the factor to the blocked
-out-of-core Cholesky and the sweep off the fused route, as planned by
-``plan_factor`` and ``plan_sweep``.
+K_nM cache (A11: ``knm_cache``, ``FalkonEstimator.build_knm_cache``, a
+``cache=`` to predict), a mesh (A14) and mini-batch fits (A12:
+``falkon_fit_minibatch``, ``falkon_fit_minibatch_streaming``,
+``minibatch_solve``, ``minibatch_solve_stream``, ``MinibatchConfig``,
+``MinibatchResult``, ``MinibatchState``, ``FalkonEstimator.partial_fit``).
+A large M routes the factor to the blocked out-of-core Cholesky and the
+sweep off the fused route, as planned by ``plan_factor`` and
+``plan_sweep``.
 """
 from __future__ import annotations
 
@@ -35,15 +45,18 @@ import math
 import time
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.data.streaming import (ChunkSource, StreamingLoader, streaming_apply,
+                                       streaming_sweep, streaming_uniform_centers)
 from repro_torch.kernels.blocked_cholesky import FactorStats
 from repro_torch.ops import KernelOps, available_ops, get_ops, plan_factor, resolve_precision
 from repro_torch.ops.base import require_supported_policy
 
-from .cg import CGResult, conjugate_gradient
+from .cg import CGResult, conjugate_gradient, conjugate_gradient_host
 from .kernels import KernelFn, make_kernel
-from .matvec import _not_ported
+from .matvec import _not_ported, _not_ported_class
 from .nystrom import NystromCenters, select_centers
 from .preconditioner import (Preconditioner, PreconditionerPath, make_preconditioner,
                              make_preconditioner_path)
@@ -143,8 +156,8 @@ class FalkonEstimator(torch.nn.Module):
     ``.to()`` and ``state_dict``); ``predict`` is one ``ops.apply``.
 
     ``precond`` and ``lam`` keep the fit-time factorization for the
-    incremental path (``partial_fit``, ROADMAP item A12); they are plain
-    attributes and do not follow ``.to()``.
+    incremental path (``partial_fit``, not ported yet: ROADMAP item A12);
+    they are plain attributes and do not follow ``.to()``.
     """
 
     def __init__(self, centers: Tensor, alpha: Tensor, kernel: KernelFn, *,
@@ -162,13 +175,38 @@ class FalkonEstimator(torch.nn.Module):
         self.lam = None if lam is None else float(lam)
         self.ops = get_ops(ops_impl, kernel, block_size=block_size, precision=precision)
 
-    def predict(self, X) -> Tensor:
-        """Score X: K(X, centers) @ alpha on the estimator's backend."""
+    def build_knm_cache(self, X, *, tier: str | None = None):
+        """Not ported yet: the K_nM cache is ROADMAP.md item A11."""
+        raise NotImplementedError("FalkonEstimator.build_knm_cache is not ported yet: "
+                                  "ROADMAP.md item A11")
+
+    def predict(self, X, *, cache=None) -> Tensor:
+        """Score X: K(X, centers) @ alpha on the estimator's backend. A
+        ``cache`` (the K_nM cache, ROADMAP.md item A11) is refused."""
+        _refuse_cache(cache)
         X = torch.as_tensor(X, dtype=self.centers.dtype, device=self.centers.device)
         return self.ops.apply(X, self.centers, self.alpha)
 
+    def predict_stream(self, loader, *, cache=None) -> Tensor:
+        """Score a ``StreamingLoader`` (or any re-iterable of (X_chunk, _)
+        device pairs) chunk by chunk: X need never be on the device at once.
+        A ``cache`` (ROADMAP.md item A11) is refused."""
+        _refuse_cache(cache)
+        return streaming_apply(self.ops, loader, self.centers, self.alpha)
+
+    def partial_fit(self, X_tail, y_tail, minibatch=None, *, key=None):
+        """Not ported yet: the mini-batch refresh is ROADMAP.md item A12."""
+        raise NotImplementedError("FalkonEstimator.partial_fit is not ported yet: "
+                                  "ROADMAP.md item A12")
+
     def forward(self, X) -> Tensor:
         return self.predict(X)
+
+
+def _refuse_cache(cache) -> None:
+    if cache is not None:
+        raise NotImplementedError("predicting from a K_nM cache is not ported yet: "
+                                  "ROADMAP.md item A11")
 
 
 class FalkonPathResult(NamedTuple):
@@ -274,14 +312,16 @@ def falkon_solve(X: Tensor, y: Tensor, centers: Tensor, precond: Preconditioner,
 
 
 def _solve_path_core(matvec: Callable, rhs_sweep: Callable, precond: PreconditionerPath,
-                     n: int, t: int, *, tol: float,
-                     storage: torch.dtype | None) -> tuple[CGResult, Tensor]:
+                     n: int, t: int, *, tol: float, storage: torch.dtype | None,
+                     host: bool = False) -> tuple[CGResult, Tensor]:
     """The shared lam-path solve: ONE right-hand-side sweep and t stacked
     CG sweeps serve all L systems; returns the CG result and the (M, L*p)
-    coefficients."""
+    coefficients. ``host`` runs the early-stopping CG driver (a streamed
+    solve: each skipped iteration saves a pass over the data)."""
     b = precond.expand_rhs(rhs_sweep() / n)   # (q, L*p): per-system A^{-T} only
     W = _falkon_operator(matvec, precond, None, n)
-    cg = conjugate_gradient(W, b, t, tol=tol, storage_dtype=storage)
+    cg_fn = conjugate_gradient_host if host else conjugate_gradient
+    cg = cg_fn(W, b, t, tol=tol, storage_dtype=storage)
     return cg, precond.coeffs(cg.x.to(precond.T.dtype))
 
 
@@ -499,8 +539,161 @@ def falkon_fit_path(generator: torch.Generator | int, X, y, config: FalkonConfig
                             val_scores=val_scores, best_index=best)
 
 
-falkon_fit_streaming = _not_ported("falkon_fit_streaming", "A8")
-falkon_solve_streaming = _not_ported("falkon_solve_streaming", "A8")
-falkon_fit_path_streaming = _not_ported("falkon_fit_path_streaming", "A8")
-falkon_solve_path_streaming = _not_ported("falkon_solve_path_streaming", "A8")
+# ----------------------------------------------------------------------------
+# Out-of-core fits: X streamed from the host, never resident on the device
+# ----------------------------------------------------------------------------
+def _streamed_solve_parts(loader, centers: Tensor, ops: KernelOps, out_dim: tuple,
+                          dt: torch.dtype) -> tuple[Callable, Callable]:
+    """The matvec and the right-hand-side sweep of a streamed solve, each one
+    pass over ``loader``; the centers quantized to the policy's storage once
+    per solve, not per chunk."""
+    (Cs,) = _stored(ops, centers)
+
+    def matvec(g):
+        return streaming_sweep(ops, loader, Cs, g, use_targets=False)
+
+    def rhs_sweep():
+        zeros = torch.zeros((centers.shape[0],) + tuple(out_dim), dtype=dt,
+                            device=centers.device)
+        return streaming_sweep(ops, loader, Cs, zeros, use_targets=True)
+
+    return matvec, rhs_sweep
+
+
+def falkon_solve_streaming(loader, centers: Tensor, precond: Preconditioner, lam: float,
+                           t: int, *, ops: KernelOps, out_dim: tuple = (),
+                           tol: float = 0.0) -> FalkonState:
+    """:func:`falkon_solve` with every data sweep streamed through ``loader``
+    (a re-iterable of (X_chunk, y_chunk) device pairs, e.g. a
+    ``StreamingLoader``): t + 1 passes over the stream, the chunk sweeps
+    accumulated on the device, O(chunk + M^2) device memory for any n. The
+    CG recurrence is the early-stopping host driver; there is no cond
+    estimate (``cond_estimate`` is 0). ``out_dim`` is y's trailing shape:
+    () for one output, (p,) for p."""
+    dt = precond.T.dtype
+    matvec, rhs_sweep = _streamed_solve_parts(loader, centers, ops, out_dim, dt)
+    n = loader.n_rows
+    W = _falkon_operator(matvec, precond, lam, n)
+    b = precond.left(rhs_sweep() / n)
+    cg = conjugate_gradient_host(W, b, t, tol=tol, storage_dtype=_cg_storage(ops))
+    return FalkonState(centers=centers, precond=precond, beta=cg.x,
+                       alpha=precond.coeffs(cg.x.to(dt)), residual_norms=cg.residual_norms,
+                       cond_estimate=torch.zeros((), dtype=dt, device=centers.device))
+
+
+def falkon_solve_path_streaming(loader, centers: Tensor, precond: PreconditionerPath, t: int,
+                                *, ops: KernelOps, out_dim: tuple = (),
+                                tol: float = 0.0) -> FalkonPathState:
+    """:func:`falkon_solve_path` with every stacked sweep streamed from the
+    host: one pass over the stream per CG iteration serves all L systems
+    (each chunk sweep carries the (M, L*p) block). The host CG driver stops
+    early once every column has converged."""
+    matvec, rhs_sweep = _streamed_solve_parts(loader, centers, ops, out_dim, precond.T.dtype)
+    cg, alpha_flat = _solve_path_core(matvec, rhs_sweep, precond, loader.n_rows, t, tol=tol,
+                                      storage=_cg_storage(ops), host=True)
+    alphas = precond.split(alpha_flat)
+    if not tuple(out_dim):
+        alphas = alphas[..., 0]
+    return FalkonPathState(centers=centers, precond=precond, beta=cg.x, alphas=alphas,
+                           residual_norms=cg.residual_norms, lams=precond.lams)
+
+
+def _streaming_front(generator, source: ChunkSource, config: FalkonConfig, lam, *,
+                     prefetch: int | None, centers, ops: KernelOps | None,
+                     stage_times: dict | None):
+    """The stages both streamed fits share, timed as :func:`falkon_fit`'s:
+    the centers (uniform, drawn in one host pass by ``generator``, an int
+    seeding a new one on the device, unless given), K_MM and the
+    factorization at ``lam`` (a scalar or a grid), y's trailing shape, and a
+    loader that moves chunks at the policy's storage type (a bf16 policy's
+    chunks cross the bus in bf16). Leverage-score centers need a
+    pilot Gram pass that is not chunk-additive, and are refused."""
+    device = resolve_device(config.device)
+    if config.center_selection != "uniform" and centers is None:
+        raise ValueError("a streamed fit draws center_selection='uniform' centers only "
+                         f"(got {config.center_selection!r}); pass centers= to use others")
+    kernel = config.make_kernel()
+    if ops is None:
+        ops = config.make_ops(kernel)
+    dt = getattr(torch, config.dtype)
+    with _timed(stage_times, "centers", device):
+        if centers is None:
+            if isinstance(generator, int):
+                generator = torch.Generator(device=device).manual_seed(generator)
+            centers, _ = streaming_uniform_centers(generator, source,
+                                                   min(config.num_centers, source.n_rows))
+        if not isinstance(centers, Tensor):
+            centers = np.array(centers)     # a writable host copy
+        centers = torch.as_tensor(centers, dtype=dt, device=device)
+    # y's trailing shape, from the host, after the centers' pass (a shuffled
+    # source replays the reference's pass order)
+    out_dim: tuple = ()
+    for _, yc in source.chunks():
+        if yc is None:
+            raise ValueError("a streamed fit needs targets in the source")
+        out_dim = tuple(yc.shape[1:])
+        break
+    with _timed(stage_times, "gram", device):
+        KMM = _stage_gram(ops, centers)
+    with _timed(stage_times, "factor", device):
+        precond = _stage_precondition(KMM, lam, source.n_rows, config, report=stage_times)
+    del KMM
+    loader = StreamingLoader(source, device=device, prefetch=prefetch,
+                             dtype=_cg_storage(ops) or dt)
+    return device, kernel, ops, centers, loader, out_dim, precond
+
+
+def falkon_fit_streaming(generator: torch.Generator | int, source: ChunkSource,
+                         config: FalkonConfig, *, prefetch: int | None = None, centers=None,
+                         ops: KernelOps | None = None,
+                         stage_times: dict | None = None) -> tuple[FalkonEstimator, FalkonState]:
+    """Fit FALKON from a host ``ChunkSource`` without X on the device.
+
+    :func:`falkon_fit`'s pipeline with the select and solve stages swapped
+    for streamed ones: uniform centers from one host pass (``centers``
+    overrides them), K_MM and the factors in-core (the paper's memory
+    budget), then :func:`falkon_solve_streaming`: t + 1 passes over the
+    chunks through a ``StreamingLoader`` (``prefetch`` chunks ahead; default
+    2 on the card, 0 on the CPU), no cond estimate. ``ops`` replaces the
+    configured backend; ``stage_times`` receives what :func:`falkon_fit`
+    records."""
+    device, kernel, ops, centers, loader, out_dim, precond = _streaming_front(
+        generator, source, config, config.lam, prefetch=prefetch, centers=centers, ops=ops,
+        stage_times=stage_times)
+    with _timed(stage_times, "solve", device):
+        state = falkon_solve_streaming(loader, centers, precond, config.lam, config.iterations,
+                                       ops=ops, out_dim=out_dim, tol=config.tol)
+    est = _stage_wrap(centers, state.alpha, kernel, config, precond=precond, lam=config.lam)
+    return est, state
+
+
+def falkon_fit_path_streaming(generator: torch.Generator | int, source: ChunkSource,
+                              config: FalkonConfig, lams, *, prefetch: int | None = None,
+                              centers=None, ops: KernelOps | None = None,
+                              stage_times: dict | None = None) -> FalkonPathResult:
+    """:func:`falkon_fit_path` for a host ``ChunkSource``: the L-lam path at
+    the stream passes of one fit (t + 1), each chunk sweep carrying the
+    stacked (M, L*p) block. No validation scoring (the val set would need
+    its own stream): score the estimators with
+    :meth:`FalkonEstimator.predict_stream`."""
+    lam_vals = _check_lams(lams)
+    device, kernel, ops, centers, loader, out_dim, precond = _streaming_front(
+        generator, source, config, lam_vals, prefetch=prefetch, centers=centers, ops=ops,
+        stage_times=stage_times)
+    with _timed(stage_times, "solve", device):
+        state = falkon_solve_path_streaming(loader, centers, precond, config.iterations,
+                                            ops=ops, out_dim=out_dim, tol=config.tol)
+    ests = tuple(_stage_wrap(centers, state.alphas[i], kernel, config,
+                             precond=precond.system(i), lam=lam)
+                 for i, lam in enumerate(lam_vals))
+    return FalkonPathResult(estimators=ests, state=state, lams=lam_vals, val_scores=None,
+                            best_index=None)
+
+
 falkon_fit_minibatch = _not_ported("falkon_fit_minibatch", "A12")
+falkon_fit_minibatch_streaming = _not_ported("falkon_fit_minibatch_streaming", "A12")
+minibatch_solve = _not_ported("minibatch_solve", "A12")
+minibatch_solve_stream = _not_ported("minibatch_solve_stream", "A12")
+MinibatchConfig = _not_ported_class("MinibatchConfig", "A12")
+MinibatchResult = _not_ported_class("MinibatchResult", "A12")
+MinibatchState = _not_ported_class("MinibatchState", "A12")

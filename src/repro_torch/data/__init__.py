@@ -1,1 +1,20 @@
-"""Synthetic datasets."""
+"""Host-streamed chunk sources and their loader, and synthetic datasets."""
+from .streaming import (
+    ArrayChunkSource,
+    ChunkSource,
+    ShardedChunkSource,
+    ShuffledChunkSource,
+    StreamingLoader,
+    default_prefetch,
+    shard_chunk_sources,
+    streaming_apply,
+    streaming_sweep,
+    streaming_uniform_centers,
+)
+from .synthetic import PAPER_TASKS, KernelTask, make_kernel_dataset
+
+__all__ = [
+    "ArrayChunkSource", "ChunkSource", "KernelTask", "PAPER_TASKS", "ShardedChunkSource",
+    "ShuffledChunkSource", "StreamingLoader", "default_prefetch", "make_kernel_dataset",
+    "shard_chunk_sources", "streaming_apply", "streaming_sweep", "streaming_uniform_centers",
+]

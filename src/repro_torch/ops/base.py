@@ -459,9 +459,10 @@ class CountingOps:
     Pure delegation plus the counters ``sweeps``, ``applies``, ``grams`` and
     ``gram_tile_evals`` (kernel-entry evaluation work in units of
     ceil(rows / block_size) row tiles, charged by every primitive that
-    evaluates kernel entries). PyTorch runs eagerly, so unlike the JAX
-    facade these are executed-call counts: a fit's 20 CG iterations count
-    20 sweeps, not one traced program point.
+    evaluates kernel entries), and ``sweep_shapes``, the set of (shape,
+    dtype) of the X every sweep was given (a streamed fit's: one). PyTorch
+    runs eagerly, so unlike the JAX facade these are executed-call counts:
+    a fit's 20 CG iterations count 20 sweeps, not one traced program point.
     """
 
     def __init__(self, ops):
@@ -470,6 +471,7 @@ class CountingOps:
         self.applies = 0
         self.grams = 0
         self.gram_tile_evals = 0
+        self.sweep_shapes: set[tuple[tuple[int, ...], torch.dtype]] = set()
 
     @property
     def kernel(self):
@@ -493,6 +495,7 @@ class CountingOps:
     def sweep(self, X, C, u, v=None, row_mask=None):
         self.sweeps += 1
         self.gram_tile_evals += self._tiles(X.shape[0])
+        self.sweep_shapes.add((tuple(X.shape), X.dtype))
         return self.ops.sweep(X, C, u, v, row_mask)
 
     def apply(self, X, C, u):
@@ -511,3 +514,4 @@ class CountingOps:
     def reset(self) -> None:
         self.sweeps = self.applies = self.grams = 0
         self.gram_tile_evals = 0
+        self.sweep_shapes = set()

@@ -131,8 +131,7 @@ def test_knm_delegates_match_reference(dtype, impl, p):
 
 def test_unported_matvec_entry_points_refuse():
     for fn, item in ((tmatvec.make_knm_cache, "A11"), (tmatvec.cached_knm_matvec, "A11"),
-                     (tmatvec.cached_knm_apply, "A11"), (tmatvec.streaming_knm_matvec, "A8"),
-                     (tmatvec.streaming_knm_apply, "A8")):
+                     (tmatvec.cached_knm_apply, "A11")):
         with pytest.raises(NotImplementedError, match=item):
             fn()
 

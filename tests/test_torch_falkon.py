@@ -24,6 +24,7 @@ from repro.core import falkon_fit as jfit
 from repro.ops import get_ops as jget_ops
 from repro_torch import FalkonConfig, FalkonEstimator, falkon_fit, falkon_solve
 from repro_torch.convert import estimator_from_numpy, preconditioner_from_numpy
+import repro_torch.core as tcore
 from repro_torch.core import falkon as tfalkon
 from repro_torch.core import make_kernel, make_preconditioner
 from repro_torch.ops import CountingOps, PrecisionPolicy, get_ops
@@ -226,10 +227,18 @@ def test_unported_options_refuse():
                dict(center_selection="greedy"), dict(dtype="float16")):
         with pytest.raises(ValueError):
             FalkonConfig(**base, **kw)
-    for fn, item in ((tfalkon.falkon_fit_streaming, "A8"),
-                     (tfalkon.falkon_fit_path_streaming, "A8"),
-                     (tfalkon.falkon_solve_path_streaming, "A8"),
-                     (tfalkon.falkon_fit_minibatch, "A12")):
+    est = FalkonEstimator(torch.zeros(4, D), torch.zeros(4), make_kernel("gaussian"),
+                          ops_impl="torch")
+    for fn, item in ((lambda: est.build_knm_cache(torch.zeros(2, D)), "A11"),
+                     (lambda: est.predict(torch.zeros(2, D), cache=object()), "A11"),
+                     (lambda: est.partial_fit(torch.zeros(2, D), torch.zeros(2)), "A12"),
+                     (tfalkon.falkon_fit_minibatch, "A12"),
+                     (tcore.falkon_fit_minibatch_streaming, "A12"),
+                     (tcore.minibatch_solve, "A12"),
+                     (tcore.minibatch_solve_stream, "A12"),
+                     (tcore.MinibatchConfig, "A12"),
+                     (tcore.MinibatchResult, "A12"),
+                     (tcore.MinibatchState, "A12")):
         with pytest.raises(NotImplementedError, match=item):
             fn()
     assert (FalkonConfig().device, FalkonConfig().ops_impl) == ("cuda", "cuda")

@@ -1,6 +1,7 @@
 """Time the Gram-tile kernels at the main path's shapes on one GPU, on random data.
 
-B1 (``fused_sweep``) at the SUSY and MillionSongs sweep shapes, B2
+B1 (``fused_sweep``) at the SUSY and MillionSongs sweep shapes and at a
+streamed SUSY fit's chunk (262,144 rows: the first rows of the SUSY X), B2
 (``kernel_matmul``) at SUSY's predict and at one launch of B4's transposed
 pass, B3 (``pairwise_kernel``) at both fits' K_MM (one tensor passed twice,
 as the fit passes its centers) and at a 65,536-row K_nM-cache block against
@@ -30,6 +31,10 @@ import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+
+#: a streamed fit's chunk height (``chip_smoke.py``'s stream phase)
+CHUNK_ROWS = 2**18
 
 
 def sha256(K) -> str:
@@ -100,6 +105,10 @@ def main() -> int:
         u = torch.randn(M, generator=g, device="cuda")
         if "b1" in only:
             report(f"B1 n={n} M={M} d={d}", lambda: km.fused_sweep(X, C, u, spec=spec))
+        if "b1" in only and d == 18:
+            Xc = X[:CHUNK_ROWS]
+            report(f"B1 n={CHUNK_ROWS} M={M} d={d} (a streamed chunk)",
+                   lambda: km.fused_sweep(Xc, C, u, spec=spec))
         for p in (widths if "b1" in only and d == 18 else ()):
             U = torch.randn(M, p, generator=g, device="cuda")
             report(f"B1 n={n} M={M} d={d} p={p}", lambda: km.fused_sweep(X, C, U, spec=spec))
