@@ -32,17 +32,18 @@ result line:
                transpose, its shared memory and resident blocks against
                the mirror, and every block's range of tiles against
                ``pairwise_range``; B4 also against B1, with ragged shards.
-   compensated — the compensated builds of B1, B2 and B4 (bf16 and fp32:
-               the bf16 policy's and the reference's compensated=True fp32
-               case) against their compensated twins, for the five kinds,
-               n, M in 1, 127, 128, 129, d in 1, 18, 90, 129, p = 1..5 (u
-               at fp32 or at the build's type in turn; bf16 u gives B1 a
-               bf16 output): B1 with v, without v, under row_mask (masked
-               rows bit-equal to the valid prefix); B2 with and without
-               add, fp32 and bf16 out, unsplit and most-split; B4 with its
-               t spilled in bf16 (masked rows bit-equal to the prefix); B1
-               with its w partial and carry in global memory; both builds'
-               plans against their mirrors.
+   compensated — the compensated builds of B1, B2 and B4 (bf16, float16
+               and fp32: the bf16 policy's, a float16 policy's and the
+               reference's compensated=True fp32 case) against their
+               compensated twins, for the five kinds, n, M in 1, 127, 128,
+               129, d in 1, 18, 90, 129, p = 1..5 (u at fp32 or at the
+               build's type in turn; 16-bit u gives B1 a 16-bit output):
+               B1 with v, without v, under row_mask (masked rows bit-equal
+               to the valid prefix); B2 with and without add, fp32 and
+               16-bit out, unsplit and most-split; B4 with its t spilled in
+               16 bits (masked rows bit-equal to the prefix); B1 with its w
+               partial and carry in global memory; every build's plans
+               against their mirrors.
 4. blocked  — the blocked Cholesky's tile kernels B5-B7 against their
                twins at the ragged test shapes, a 1280 tile and the last
                80-wide panel's update (k = 1280); B5 at widths around its
@@ -95,6 +96,22 @@ result line:
                the fp32 fit's data and seed: stage times, device peak, test
                error and launches by build (47 bf16 B1), beside the fp32
                fit's.
+   f16      — a float16 policy (storage float16, compensated) as bf16:
+               the float16 builds of B1 and B2 against float64 twins, and
+               the full-size fit beside the fp32 and bf16 fits (47 f16c B1).
+   cache    — the K_nM cache at SUSY's full width on the first 10^6 rows:
+               the device-tier cached fit (knm_cache="device": 489 + 1 B3,
+               0 B1 launches, 47 GEMM sweeps at the facade) against the
+               uncached fit on the same rows and centers (test error within
+               0.002, alpha within the path's bound), materialize and solve
+               seconds, device peak; one cached sweep against B1 (IEEE fp32
+               asserted, a TF32 setting refused), timed beside it and
+               profiled; the bf16 cache's sweep and fit; "auto" at the
+               reference's default budgets ("off", warned, the uncached fit
+               bit for bit); cached vs uncached at n = 20,000, M = 500,
+               lam = 1e-3; the host tier on 131,072 rows against the device
+               tier; a scoring cache over the test rows against B2's
+               predict; B3 at one 2048-row cache tile for the kernels line.
    stream   — the host-streamed fits at SUSY's full size, X, y and the
                test rows as host numpy in chunks of 2^18 rows (16 chunks,
                the last padded and masked): the fp32 fit on the main fit's
@@ -148,7 +165,9 @@ result line:
                (``torch.profiler``); then one ``kernels`` JSON line (B3's
                entry: SUSY's K_MM; the bf16 builds of B1, B2 and B4 as
                entries of their own, their launches from the bf16 fit and
-               the bf16 B4 sweep; B1 at p = 4 and 8 and B2 at p = 8 as
+               the bf16 B4 sweep; the float16 builds of B1 and B2 likewise,
+               from the float16 fit; B3 at a K_nM-cache tile, its launches
+               from the cached fit; B1 at p = 4 and 8 and B2 at p = 8 as
                entries of their own, their launches from the path fit; B1
                at a streamed chunk, 262,144 rows, its launches from the
                streamed fp32 fit).
@@ -285,16 +304,19 @@ PATH_STACK_TOL = 1e-4
 LEVERAGE_FP32_BOUND = 1e-2
 LEVERAGE_RATIO_SLACK = 1e-6
 #: the compensated builds the kernel checks hold against their twins: bf16
-#: (the bf16 policy's) and fp32 (the reference's compensated=True fp32 case)
-COMP_DTYPES = ("bfloat16", "float32")
+#: (the bf16 policy's), float16 (a float16 policy's) and fp32 (the
+#: reference's compensated=True fp32 case)
+COMP_DTYPES = ("bfloat16", "float16", "float32")
 #: right-hand-side widths of the compensated checks, one shape each in turn
 COMP_WIDTHS = (1, 2, 3, 4, 5)
 #: a bf16 result against its twin: both round the same fp32 sum to bf16,
 #: which may fall either side of a rounding boundary, so one bf16 unit in
 #: the last place (at most 2^-7 of a value: 8 significant bits) of the
 #: largest entry is added to the fp32 tolerance; B4's bf16 t spill likewise
-#: moves w_j by up to 2^-7 sum_i |K_ij t_i|
+#: moves w_j by up to 2^-7 sum_i |K_ij t_i|. A float16 result (11
+#: significant bits) likewise, one float16 unit: 2^-10
 BF16_RTOL = 2.0 ** -7
+F16_RTOL = 2.0 ** -10
 #: idle seconds on each side of a profiled call (see ``breakdown``)
 PROFILE_PAD = 2.0
 #: the bf16 policy's error against float64 on unquantized inputs, as the
@@ -315,6 +337,23 @@ STREAM_PRED_TOL = 1e-3
 #: the rows an in-core bf16 solve is rolled by, to show what the order of
 #: the sums alone does to its test error
 STREAM_ROLL = 786_432
+#: the K_nM cache's fits: the first 10^6 SUSY rows on the device tier (a
+#: 1,001,472 x 10^4 fp32 K_nM, 4.0e10 B), the first 131,072 on the host tier
+#: (64 tiles, 5.24 GB), and the scoring cache over the 5x10^5 test rows
+CACHE_N = 1_000_000
+CACHE_HOST_N = 131_072
+#: the cached fit's test error against the uncached fit's on the same rows
+#: and centers (the streamed fit's bound); its alpha and predictions are
+#: held against a float64 fit of the same system, no farther than
+#: PATH_AGREE x the uncached fit's (at lam = 1e-6 fp32 rounding moves alpha
+#: far: C.11; measured on the card, the two fp32 alphas stand 1.138 apart);
+#: at lam = 1e-3 (STREAM_SMALL) the cached fit's predictions against the
+#: uncached fit's, normwise
+CACHE_ERR = 0.002
+CACHE_SMALL_PRED_TOL = 1e-4
+#: the host tier's alpha against the device tier's on the same rows: the
+#: same GEMMs, summed across tiles in the same order
+CACHE_HOST_TOL = 1e-5
 SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
 SOURCE_BLOCKED = "src/repro_torch/kernels/csrc/blocked_cholesky.cu"
 DEVICE = "cuda"
@@ -341,6 +380,11 @@ SOURCES.update({name: SOURCE_BLOCKED for name in ("potrf_tile", "trsm_panel",
 #: B1 at a streamed fit's chunk
 SOURCES.update(fused_sweep_p4=SOURCE, fused_sweep_p8=SOURCE, kernel_matmul_p8=SOURCE,
                fused_sweep_chunk=SOURCE)
+#: the float16 compensated builds of B1 and B2, and B3 at one K_nM-cache
+#: tile (2048 rows, the cached fit's 489 launches)
+SOURCES.update(fused_sweep_f16c="src/repro_torch/kernels/csrc/kernel_matvec_f16c.cu",
+               kernel_matmul_f16c="src/repro_torch/kernels/csrc/kernel_matvec_f16c.cu",
+               pairwise_kernel_tile=SOURCE)
 
 
 class SmokeFailure(RuntimeError):
@@ -719,17 +763,24 @@ def check_sharded(torch, km, spec, X, C, u, v, shard: int, res: dict, tag: str) 
         km.sharded_sweep_plain(Xj, C, u2, v2, spec=spec, row_mask=mask, shard_m=shard))
 
 
+def unit_rtol(torch, dt) -> float:
+    """One unit in the last place of a 16-bit result, relative (0 for
+    fp32): what a rounding boundary between kernel and twin may cost."""
+    return {torch.bfloat16: BF16_RTOL, torch.float16: F16_RTOL}.get(dt, 0.0)
+
+
 def spill_err(torch, km, spec, got, ref, X, C, t) -> tuple[float, float]:
     """(max |got - ref|, max_j |got_j - ref_j| / (atol + rtol max|ref| +
-    BF16_RTOL S_j)) for B4 with its t spilled in bf16, S = |K(X, C)|^T |t|:
-    the kernel and its twin round t's fp32 sums to bf16, and an entry whose
-    sums fall either side of a rounding boundary moves w_j by up to
-    one bf16 unit of t_i times |K_ij|. Small shapes only (K is
-    materialized)."""
+    u S_j)) for B4 with its t spilled in 16 bits (u one unit of t's type),
+    S = |K(X, C)|^T |t|: the kernel and its twin round t's fp32 sums to
+    t's type, and an entry whose sums fall either side of a rounding
+    boundary moves w_j by up to one unit of t_i times |K_ij|. Small shapes
+    only (K is materialized)."""
     K = km.pairwise_kernel_plain(X.float(), C.float(), spec=spec).abs().double()
     S = K.T @ t.double().abs()
     diff = (got.double() - ref.double()).abs()
-    lim = TOL["atol"] + TOL["rtol"] * float(ref.double().abs().max()) + BF16_RTOL * S
+    lim = (TOL["atol"] + TOL["rtol"] * float(ref.double().abs().max())
+           + unit_rtol(torch, t.dtype) * S)
     return float(diff.max()), float((diff / lim).max())
 
 
@@ -737,18 +788,20 @@ def check_compensated(torch, km, spec, X, C, u, v, tag: str) -> dict:
     """The compensated builds of B1, B2 and B4 against their compensated
     twins, X and C at the build's type: B1 with v, without v and under
     ``row_mask`` (masked junk rows bit-equal to the valid prefix), and its
-    tile count; B2 with and without ``add``, fp32 and bf16 out, on the
-    unsplit and the most-split grid; B4 with its t spilled in bf16 (ragged
-    64-row shards), masked rows bit-equal to the prefix. Returns
-    {check: (max abs err, ratio)}."""
+    tile count; B2 with and without ``add``, fp32 and 16-bit out (the
+    build's type; bf16 for the fp32 build), on the unsplit and the
+    most-split grid; B4 with its t spilled in that type (ragged 64-row
+    shards), masked rows bit-equal to the prefix. Returns {check: (max abs
+    err, ratio)}."""
     n, M = X.shape[0], C.shape[0]
     p = u.shape[1]
-    bf, f32 = torch.bfloat16, torch.float32
+    bf = X.dtype if X.dtype.itemsize == 2 else torch.bfloat16
+    f32 = torch.float32
     kw = dict(spec=spec, compensated=True)
     res = {}
 
     def held(name, got, ref):
-        res[name] = close_err(got, ref, TOL["rtol"] + (BF16_RTOL if got.dtype == bf else 0.0))
+        res[name] = close_err(got, ref, TOL["rtol"] + unit_rtol(torch, got.dtype))
 
     w, cnt = km.fused_sweep(X, C, u, v, return_tile_count=True, **kw)
     held(f"sweep ({w.dtype})", w, km.fused_sweep_plain(X, C, u, v, **kw)[0])
@@ -773,7 +826,7 @@ def check_compensated(torch, km, spec, X, C, u, v, tag: str) -> dict:
         held(f"matmul slots={slots} add={add is not None} out={out}", got, ref)
     sk = dict(kw, shard_m=64, t_dtype=bf, out_dtype=f32)
     t = km.kernel_matmul_plain(X, C, u, v, out_dtype=bf, **kw)
-    res["sharded bf16 t"] = spill_err(torch, km, spec, km.sharded_sweep(X, C, u, v, **sk),
+    res[f"sharded {bf} t"] = spill_err(torch, km, spec, km.sharded_sweep(X, C, u, v, **sk),
                                       km.sharded_sweep_plain(X, C, u, v, **sk), X, C, t)
     got_m = km.sharded_sweep(Xj, C, u, v, row_mask=mask, **sk)
     got_p = km.sharded_sweep(X[:keep].contiguous(), C, u, v[:keep].contiguous(), **sk)
@@ -783,12 +836,12 @@ def check_compensated(torch, km, spec, X, C, u, v, tag: str) -> dict:
 
 
 def phase_compensated(torch):
-    """The compensated builds (bf16 and fp32) of B1, B2 and B4 against their
-    twins for the five kinds, around the 128 x 128 tile (n, M in EDGE_NM, d
-    in EDGE_D, p = 1..5 one shape each in turn, u at fp32 or at the build's
-    type in turn: bf16 u gives B1 a bf16 output), B1 with its w partial and
-    carry in global memory (SWEEP_GLOBAL), and B1's and B2's plans for both
-    builds against their mirrors."""
+    """The compensated builds (bf16, float16 and fp32) of B1, B2 and B4
+    against their twins for the five kinds, around the 128 x 128 tile (n, M
+    in EDGE_NM, d in EDGE_D, p = 1..5 one shape each in turn, u at fp32 or
+    at the build's type in turn: 16-bit u gives B1 a 16-bit output), B1
+    with its w partial and carry in global memory (SWEEP_GLOBAL), and B1's
+    and B2's plans for every build against their mirrors."""
     from repro_torch.core.kernels import make_kernel
     from repro_torch.kernels import kernel_matvec as km
     dev = torch.device(DEVICE)
@@ -844,7 +897,7 @@ def phase_compensated(torch):
             f"{[(M, p) for _, M, _, p in SWEEP_GLOBAL]}); worst ratio {worst:.4f} ({worst_at})")
         total += cases
     dev_i = torch.cuda.current_device()
-    for variant in (1, 2):
+    for variant in (1, 2, 3):
         for p in (1, 4):
             for d in (18, 90):
                 smem, slots = km._matmul_slots(p, km.KIND_CODES["gaussian"], d, variant, dev_i)
@@ -859,7 +912,7 @@ def phase_compensated(torch):
                 f"memory {smem} B (w partial and carry there: {in_smem}), grid {grid} (model "
                 f"{model})")
             check(model >= grid, "the planner's compensated grid model is below the card's")
-    say(f"[compensated] {total} checks pass; B2's plans equal their mirrors for both builds")
+    say(f"[compensated] {total} checks pass; B2's plans equal their mirrors for every build")
 
 
 def rel(a, b) -> float:
@@ -1108,8 +1161,8 @@ def phase_main(torch, args):
     e = small_fit(args.seed, "cuda", task.lam)
     u = torch.randn(ms, generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
     sweep_witness(torch, km, e.kernel.spec, Xs, e.centers, u, f"n={ns} M={ms}")
-    return dict(X=X, y=y, Xt=Xt, yt=yt, centers=est.centers, alpha=est.alpha,
-                spec=est.kernel.spec, counts=counts, fit_s=fit_s,
+    return dict(X=X, y=y, Xt=Xt, yt=yt, kernel=est.kernel, centers=est.centers,
+                alpha=est.alpha, spec=est.kernel.spec, counts=counts, fit_s=fit_s,
                 times=times, peak=peak, err=err, pred=pred, task=task)
 
 
@@ -1385,23 +1438,20 @@ def path_leverage(torch, args, main) -> None:
           "approximate leverage scores above the exact ones or not positive")
 
 
-def phase_bf16(torch, args, main) -> list[dict]:
-    """The bf16 policy at SUSY's shape: the compensated bf16 B1 sweep at the
-    fit's shape and B2 at predict's against float64 twins, on the same
-    bf16-quantized inputs (the kernels' own accumulation) and on the
-    unquantized ones (the policy's error), B1 bit-equal over two runs; then
-    the full-size fit with ``precision="bf16"`` on the fp32 fit's data and
-    generator seed, its stage times, device peak and test error beside the
-    fp32 fit's, and its launches. Returns the kernels line's rows and the
-    bf16 fit's test error."""
-    from repro_torch.core import FalkonConfig, falkon_fit
+def reduced_kernels(torch, main, dt, tag: str, seed: int) -> list[dict]:
+    """A 16-bit compensated build (``dt``: bf16 or float16) at SUSY's shape:
+    B1 at the fit's shape and B2 at predict's against float64 twins, on the
+    same quantized inputs (the kernels' own accumulation) and on the
+    unquantized ones (the policy's error), each twice bit-equal, timed
+    beside its compensated twin and its bound (2-byte X and C). Returns the
+    kernels line's rows (launches filled in by the fit)."""
     from repro_torch.kernels import kernel_matvec as km
-    bf = torch.bfloat16
     X, Xt, C, alpha, spec = main["X"], main["Xt"], main["centers"], main["alpha"], main["spec"]
     n, d = X.shape
     M, m = C.shape[0], Xt.shape[0]
-    Xq, Cq, Xtq = X.to(bf), C.to(bf), Xt.to(bf)
-    u = torch.randn(M, generator=torch.Generator(device=DEVICE).manual_seed(11), device=DEVICE)
+    build = km.VARIANT_NAMES[km.VARIANTS[dt, True]]
+    Xq, Cq, Xtq = X.to(dt), C.to(dt), Xt.to(dt)
+    u = torch.randn(M, generator=torch.Generator(device=DEVICE).manual_seed(seed), device=DEVICE)
     rows = []
 
     sweep = lambda: km.fused_sweep(Xq, Cq, u, spec=spec, compensated=True)
@@ -1416,24 +1466,24 @@ def phase_bf16(torch, args, main) -> list[dict]:
     abs_err, ratio = close_err(w, w64q)
     rs = float(((w.double() - w64q).abs() / (PRED_RTOL * S + 1e-12)).max())
     pol = rel(w, w64)
-    say(f"[bf16] SUSY-shape sweep n={n} M={M} d={d}, bf16 compensated B1: against a float64 "
-        f"twin on the same bf16 inputs max abs err {abs_err:.4e} (ratio {ratio:.4f} of atol "
+    say(f"[{tag}] SUSY-shape sweep n={n} M={M} d={d}, {build} B1: against a float64 "
+        f"twin on the same {tag} inputs max abs err {abs_err:.4e} (ratio {ratio:.4f} of atol "
         f"1e-4 + rtol 1e-4, bound 1; {rs:.4f} of {PRED_RTOL:g} x sum|terms|); the policy's "
         f"error against float64 on the unquantized inputs {pol:.4e} (normwise; the reference "
-        f"documents <= {POLICY_BOUND:g}); two runs bit-equal: {again}")
-    check(ratio <= 1.0 and again, "bf16 B1 at the SUSY shape is off its float64 twin or not "
-          "deterministic")
-    breakdown(torch, f"B1 bf16 n={n} M={M} d={d}", sweep)
+        f"documents <= {POLICY_BOUND:g} for bf16); two runs bit-equal: {again}")
+    check(ratio <= 1.0 and again, f"{build} B1 at the SUSY shape is off its float64 twin or "
+          "not deterministic")
+    breakdown(torch, f"B1 {tag} n={n} M={M} d={d}", sweep)
     ms = time_cuda(torch, sweep, 5)
     plain = time_cuda(torch, lambda: km.fused_sweep_plain(Xq, Cq, u[:, None], None, spec=spec,
                                                           compensated=True, block_rows=65_536),
                       1, warm=False)
     b, by = bound(n * M * (2 * d + 10 + 4), 2 * (n * d + M * d) + 4 * 2 * M)
-    say(f"[bf16] B1 bf16 at the SUSY shape: kernel {ms:.4f} ms, compensated twin {plain:.4f} ms, "
-        f"bound {b:.4f} ms ({by})")
-    rows.append(dict(name="fused_sweep_bf16c", base="fused_sweep", ms=ms, plain_ms=plain,
+    say(f"[{tag}] B1 {tag} at the SUSY shape: kernel {ms:.4f} ms, compensated twin "
+        f"{plain:.4f} ms, bound {b:.4f} ms ({by})")
+    rows.append(dict(name=f"fused_sweep_{build}", base="fused_sweep", ms=ms, plain_ms=plain,
                      bound_ms=b, bound_by=by, max_abs_err=abs_err,
-                     shape=f"n={n} M={M} d={d} p=1 bf16"))
+                     shape=f"n={n} M={M} d={d} p=1 {tag}"))
     del w64, w64q
 
     predict = lambda: km.kernel_matmul(Xtq, Cq, alpha, spec=spec, compensated=True)
@@ -1443,25 +1493,37 @@ def phase_bf16(torch, args, main) -> list[dict]:
                                    spec=spec)[:, 0]
     Sp = float(km.kernel_matmul_plain(Xtq, Cq, alpha.abs()[:, None], spec=spec).max())
     err64 = float((out - ref64).abs().max())
-    say(f"[bf16] predict-shape kernel matmul m={m} n={M}, bf16 compensated B2: max abs err "
-        f"{err64:.4e} against a float64 twin on the same bf16 inputs (limit {PRED_RTOL:g} x max "
-        f"sum|terms| {Sp:.4e} = {PRED_RTOL * Sp:.4e}); two runs bit-equal: {again}")
-    check(err64 <= PRED_RTOL * Sp and again, "bf16 B2 at the predict shape is off its float64 "
-          "twin or not deterministic")
-    breakdown(torch, f"B2 bf16 m={m} n={M} d={d}", predict)
+    say(f"[{tag}] predict-shape kernel matmul m={m} n={M}, {build} B2: max abs err "
+        f"{err64:.4e} against a float64 twin on the same {tag} inputs (limit {PRED_RTOL:g} x "
+        f"max sum|terms| {Sp:.4e} = {PRED_RTOL * Sp:.4e}); two runs bit-equal: {again}")
+    check(err64 <= PRED_RTOL * Sp and again, f"{build} B2 at the predict shape is off its "
+          "float64 twin or not deterministic")
+    breakdown(torch, f"B2 {tag} m={m} n={M} d={d}", predict)
     ms = time_cuda(torch, predict, 10)
     plain = time_cuda(torch, lambda: km.kernel_matmul_plain(Xtq, Cq, alpha[:, None], spec=spec,
                                                             compensated=True), 1, warm=False)
     b, by = bound(m * M * (2 * d + 10 + 2), 2 * (m * d + M * d) + 4 * (M + m))
-    say(f"[bf16] B2 bf16 at the predict shape: kernel {ms:.4f} ms, compensated twin {plain:.4f} "
-        f"ms, bound {b:.4f} ms ({by})")
-    rows.append(dict(name="kernel_matmul_bf16c", base="kernel_matmul", ms=ms, plain_ms=plain,
-                     bound_ms=b, bound_by=by, max_abs_err=err64,
-                     shape=f"m={m} n={M} d={d} p=1 bf16"))
-    del Xq, Cq, Xtq, out, ref64
+    say(f"[{tag}] B2 {tag} at the predict shape: kernel {ms:.4f} ms, compensated twin "
+        f"{plain:.4f} ms, bound {b:.4f} ms ({by})")
+    rows.append(dict(name=f"kernel_matmul_{build}", base="kernel_matmul", ms=ms,
+                     plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=err64,
+                     shape=f"m={m} n={M} d={d} p=1 {tag}"))
+    return rows
 
-    # the fit, on the fp32 fit's data and seed
-    config = susy_config(FalkonConfig, main["task"], precision="bf16")
+
+def reduced_fit(torch, args, main, precision, dt, tag: str, rows: list[dict],
+                beside: dict) -> dict:
+    """The full-size SUSY fit under a 16-bit policy (``precision``: a name
+    or a ``PrecisionPolicy``) on the fp32 fit's data and generator seed (so
+    its centers): stage times, device peak and test error beside the fits
+    in ``beside`` (tag -> their results), launches by build (47 B1 of the
+    policy's build), CG iterates stored at ``dt``. Fills ``rows``'
+    launches; returns the fit's results."""
+    from repro_torch.core import FalkonConfig, falkon_fit
+    from repro_torch.kernels import kernel_matvec as km
+    X, Xt = main["X"], main["Xt"]
+    build = km.VARIANT_NAMES[km.VARIANTS[dt, True]]
+    config = susy_config(FalkonConfig, main["task"], precision=precision)
     km.reset_launch_counts()
     times: dict = {}
     torch.cuda.synchronize()
@@ -1476,33 +1538,64 @@ def phase_bf16(torch, args, main) -> list[dict]:
     peak = torch.cuda.max_memory_allocated()
     counts, variants = km.launch_counts(), km.variant_launch_counts()
     fit_s = t1 - t0
-    ft = main["times"]
-    say("[bf16] stage seconds, bf16 fit [fp32 fit]: " + ", ".join(
-        f"{k} {v:.4f} [{ft[k]:.4f}]" for k, v in times.items() if isinstance(v, float))
-        + f"; fit total {fit_s:.4f} [{main['fit_s']:.4f}]")
-    say(f"[bf16] peak device memory {peak / 2**30:.3f} GiB [fp32 fit: {main['peak'] / 2**30:.3f} "
-        f"GiB]; {before / 2**30:.3f} GiB was allocated before the fit (the fp32 data); X on the "
-        f"card {X.numel() * 2 / 2**20:.1f} MiB in bf16, {X.numel() * 4 / 2**20:.1f} MiB in fp32")
-    say(f"[bf16] kernel launches in the bf16 fit: {counts}; by build: "
+    names = "][".join(beside)
+    say(f"[{tag}] stage seconds, {tag} fit [{names} fits]: " + ", ".join(
+        f"{k} {v:.4f} [" + "][".join(f"{b['times'][k]:.4f}" for b in beside.values()) + "]"
+        for k, v in times.items() if isinstance(v, float))
+        + f"; fit total {fit_s:.4f} [" + "][".join(f"{b['fit_s']:.4f}" for b in beside.values())
+        + "]")
+    say(f"[{tag}] peak device memory {peak / 2**30:.3f} GiB [fp32 fit: "
+        f"{main['peak'] / 2**30:.3f} GiB]; {before / 2**30:.3f} GiB was allocated before the fit "
+        f"(the fp32 data); X on the card {X.numel() * 2 / 2**20:.1f} MiB in {tag}, "
+        f"{X.numel() * 4 / 2**20:.1f} MiB in fp32")
+    say(f"[{tag}] kernel launches in the {tag} fit: {counts}; by build: "
         + ", ".join(f"{k} {v}" for k, v in variants.items() if v))
-    check(variants["fused_sweep_bf16c"] == 47 and counts["fused_sweep"] == 47,
-          f"the bf16 fit's sweeps did not all run the bf16 build: {variants}")
-    check(variants["kernel_matmul_bf16c"] >= 1 and counts["pairwise_kernel"] == 1,
-          f"the bf16 fit's predict or gram did not launch: {counts} {variants}")
-    check(state.beta.dtype == bf, f"CG iterates stored as {state.beta.dtype}, not bf16")
+    check(variants[f"fused_sweep_{build}"] == 47 and counts["fused_sweep"] == 47,
+          f"the {tag} fit's sweeps did not all run the {build} build: {variants}")
+    check(variants[f"kernel_matmul_{build}"] >= 1 and counts["pairwise_kernel"] == 1,
+          f"the {tag} fit's predict or gram did not launch: {counts} {variants}")
+    check(state.beta.dtype == dt, f"CG iterates stored as {state.beta.dtype}, not {dt}")
     res = state.residual_norms.cpu()
     check(bool(torch.isfinite(state.alpha).all() and torch.isfinite(pred).all()),
-          "non-finite alpha or predictions in the bf16 fit")
+          f"non-finite alpha or predictions in the {tag} fit")
     check(bool(torch.isfinite(res).all()) and float(res[-1]) < float(res[0]),
-          "the bf16 fit's CG residual did not decrease")
+          f"the {tag} fit's CG residual did not decrease")
     err = float((torch.sign(pred) != main["yt"]).float().mean())
-    say("[bf16] residual norms: " + " ".join(f"{float(r):.4e}" for r in res))
-    say(f"[bf16] cond_estimate {float(state.cond_estimate):.6g}; test error {err:.6f} [fp32 fit: "
-        f"{main['err']:.6f}]; predictions' distance from the fp32 fit's {rel(pred, main['pred']):.4e}")
-    check(err < 0.4, f"bf16 fit test error {err} no better than chance")
+    say(f"[{tag}] residual norms: " + " ".join(f"{float(r):.4e}" for r in res))
+    say(f"[{tag}] cond_estimate {float(state.cond_estimate):.6g}; test error {err:.6f} ["
+        + "][".join(f"{k} fit: {b['err']:.6f}" for k, b in beside.items())
+        + f"]; predictions' distance from the fp32 fit's {rel(pred, main['pred']):.4e}")
+    check(err < 0.4, f"{tag} fit test error {err} no better than chance")
     for r in rows:
         r["launches"] = variants[r["name"]]
-    return rows, err
+    return dict(times=times, fit_s=fit_s, err=err, peak=peak)
+
+
+def phase_bf16(torch, args, main) -> tuple[list[dict], dict]:
+    """The bf16 policy at SUSY's shape: the bf16 compensated B1 sweep at the
+    fit's shape and B2 at predict's against float64 twins
+    (``reduced_kernels``), then the full-size fit with ``precision="bf16"``
+    on the fp32 fit's data and generator seed beside the fp32 fit
+    (``reduced_fit``). Returns the kernels line's rows and the fit's
+    results."""
+    rows = reduced_kernels(torch, main, torch.bfloat16, "bf16", 11)
+    fit = reduced_fit(torch, args, main, "bf16", torch.bfloat16, "bf16", rows,
+                      {"fp32": main})
+    return rows, fit
+
+
+def phase_f16(torch, args, main, bf16) -> list[dict]:
+    """A float16 policy (``PrecisionPolicy(storage="float16",
+    compensated=True)``) at SUSY's shape, as the bf16 phase: the float16
+    compensated builds of B1 and B2 against float64 twins, then the
+    full-size fit on the fp32 fit's data and seed, beside the fp32 and bf16
+    fits. Returns the kernels line's rows."""
+    from repro_torch.ops import PrecisionPolicy
+    policy = PrecisionPolicy(name="fp16", storage="float16", compensated=True)
+    rows = reduced_kernels(torch, main, torch.float16, "f16", 13)
+    reduced_fit(torch, args, main, policy, torch.float16, "f16", rows,
+                {"fp32": main, "bf16": bf16})
+    return rows
 
 
 def sign_err(torch, pred, yt) -> float:
@@ -1516,6 +1609,224 @@ def synced(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def phase_cache(torch, args, main, card: str) -> list[dict]:
+    """The K_nM cache (A11) at SUSY's full width. A device-tier cached fit
+    (``knm_cache="device"``) on the first CACHE_N rows beside the uncached
+    fit on the same rows and seed (so the same centers): one B3 launch per
+    2048-row tile, no B1, every one of the 47 sweeps a GEMM sweep; the test
+    error held against the uncached fit's, alpha and predictions against a
+    float64 fit of the same system (PATH_AGREE x the uncached fit's
+    distance); the stage seconds and the device peak. Then the cached
+    sweep against B1 at that n (IEEE fp32 GEMMs asserted; a TF32 setting
+    refused), the bf16 cache's sweep and fit, the
+    "auto" route at the reference's default budgets ("off", with a
+    ``CachePlanWarning``, the uncached fit bit for bit), a cached fit
+    against an uncached one at lam = 1e-3, the host tier on CACHE_HOST_N
+    rows against the device tier, and a scoring cache over the test rows
+    against B2's predict. Returns the kernels line's B3-tile row."""
+    from repro_torch.core import FalkonConfig, FalkonEstimator, falkon_fit
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.ops import CachePlanWarning, CountingOps, KernelCache, plan_cache
+    X, y, Xt, yt, task, spec = (main[k] for k in ("X", "y", "Xt", "yt", "task", "spec"))
+    n = min(CACHE_N, X.shape[0])
+    X1, y1 = X[:n], y[:n]
+    M, bs = main["centers"].shape[0], 2048
+    tiles, kmm_tiles = -(-n // bs), -(-M // bs)
+    ieee = (not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest")
+    say(f"[cache] matmuls in IEEE fp32: allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+        f"float32 matmul precision {torch.get_float32_matmul_precision()!r}")
+    check(ieee, "the cached path's GEMMs would not run in IEEE fp32")
+    plan = plan_cache(n, M, tier="device")
+    say(f"[cache] plan (forced): {plan}")
+    auto = plan_cache(n, M)
+    say(f"[cache] plan at the reference's default budgets: tier {auto.tier!r} — {auto.reason}")
+    check(auto.tier == "off", f"the default budgets route SUSY's n={n} cache {auto.tier!r}")
+
+    # the uncached fit, then the cached one, on the same rows and seed
+    cfg = susy_config(FalkonConfig, task)
+    times0: dict = {}
+    est0, st0 = falkon_fit(args.seed, X1, y1, cfg, stage_times=times0)
+    torch.cuda.synchronize()
+    km.reset_launch_counts()
+    cfg_c = susy_config(FalkonConfig, task, knm_cache="device")
+    ops = CountingOps(cfg_c.make_ops())
+    times1: dict = {}
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    est1, st1 = falkon_fit(args.seed, X1, y1, cfg_c, ops=ops, stage_times=times1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = km.launch_counts()
+    say(f"[cache] cached fit n={n} M={M}: stage seconds " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times1.items() if isinstance(v, float))
+        + f"; uncached fit: " + ", ".join(f"{k} {v:.4f}" for k, v in times0.items()
+                                          if isinstance(v, float)))
+    say(f"[cache] materialize {times1['cache']:.4f} s ({counts['pairwise_kernel']} B3 launches: "
+        f"{tiles} tiles of {bs} rows and K_MM); solve {times1['solve']:.4f} s cached, "
+        f"{times0['solve']:.4f} s uncached ({times1['solve'] / times0['solve']:.4f}x); "
+        f"device peak {peak} B ({peak / 2**30:.3f} GiB; {before / 2**30:.3f} GiB held before); "
+        f"the cache {plan.cache_bytes} B in K_nM, {tiles * bs * M * 4} B stored")
+    say(f"[cache] launches {counts}; facade: sweeps {ops.sweeps}, materializes "
+        f"{ops.materializes}, gemm_sweeps {ops.gemm_sweeps}, gram_tile_evals "
+        f"{ops.gram_tile_evals}")
+    check(counts["pairwise_kernel"] == tiles + 1 and counts["fused_sweep"] == 0
+          and counts["sharded_sweep"] == 0, f"the cached fit's launches {counts}")
+    check(ops.sweeps == 0 and ops.materializes == 1 and ops.gemm_sweeps == 47
+          and ops.gram_tile_evals == tiles + kmm_tiles,
+          f"the cached fit's facade counts: sweeps {ops.sweeps}, gemm_sweeps {ops.gemm_sweeps}")
+    check(torch.equal(est0.centers, est1.centers), "the cached and uncached fits' centers differ")
+    p0, p1 = est0.predict(Xt), est1.predict(Xt)
+    e0, e1 = sign_err(torch, p0, yt), sign_err(torch, p1, yt)
+    t64 = time.perf_counter()
+    os.environ["REPRO_FACTOR_BUDGET_MB"] = "1024"   # the float64 factor stays in-core
+    try:
+        ref = falkon_fit(args.seed, X1.double(), y1.double(), susy_config(
+            FalkonConfig, task, dtype="float64", ops_impl="torch", estimate_cond=False))[0]
+    finally:
+        os.environ.pop("REPRO_FACTOR_BUDGET_MB")
+    ref_pred = ref.predict(Xt.double())
+    check(torch.equal(ref.centers.float(), est0.centers), "the float64 fit drew other centers")
+    c64 = dict(alpha=rel(st1.alpha, ref.alpha), pred=rel(p1, ref_pred))
+    u64 = dict(alpha=rel(st0.alpha, ref.alpha), pred=rel(p0, ref_pred))
+    say(f"[cache] test error cached {e1:.6f}, uncached {e0:.6f} (bound {CACHE_ERR} apart); "
+        f"alpha {rel(st1.alpha, st0.alpha):.4e} apart, predictions {rel(p1, p0):.4e}; from a "
+        f"float64 fit ({time.perf_counter() - t64:.1f} s): the cached fit's alpha "
+        f"{c64['alpha']:.4e}, predictions {c64['pred']:.4e}, the uncached fit's "
+        f"{u64['alpha']:.4e}, {u64['pred']:.4e} (bound {PATH_AGREE:g}x the uncached fit's); "
+        f"cond {float(st1.cond_estimate):.6g} vs {float(st0.cond_estimate):.6g}")
+    check(abs(e1 - e0) <= CACHE_ERR and bool(torch.isfinite(st1.alpha).all())
+          and all(c64[k] <= PATH_AGREE * u64[k] for k in c64),
+          "the cached fit is off the uncached fit or farther from the float64 fit")
+    del ref, ref_pred
+
+    # one cached sweep against B1 at this n; a TF32 setting is refused
+    cache = KernelCache(cfg_c.make_ops(), X1, main["centers"], plan=plan)
+    u = torch.randn(M, generator=torch.Generator(device=DEVICE).manual_seed(17), device=DEVICE)
+    wc, wb = cache.sweep(u), km.fused_sweep(X1, main["centers"], u, spec=spec)
+    abs_err, ratio = close_err(wc, wb)
+    again = torch.equal(wc, cache.sweep(u))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        cache.sweep(u)
+        refused = False
+    except RuntimeError:
+        refused = True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    say(f"[cache] cached sweep vs B1 at n={n}: max abs err {abs_err:.3e} (ratio {ratio:.4f}); "
+        f"two runs bit-equal: {again}; refused under allow_tf32: {refused}")
+    check(ratio <= 1.0 and again and refused, "the cached sweep is off B1, not deterministic, "
+          "or ran with TF32")
+    breakdown(torch, f"cached sweep n={n} M={M}", lambda: cache.sweep(u))
+    ms_c = time_cuda(torch, lambda: cache.sweep(u), 5)
+    ms_b = time_cuda(torch, lambda: km.fused_sweep(X1, main["centers"], u, spec=spec), 5)
+    say(f"[cache] one sweep at n={n} M={M}: cached {ms_c:.4f} ms, B1 {ms_b:.4f} ms "
+        f"({ms_c / ms_b:.4f}x); {card}")
+    del cache, wc, wb
+
+    # bf16 storage: half the bytes, a widened strip per product
+    cfg_b = susy_config(FalkonConfig, task, precision="bf16", knm_cache="device")
+    cache = KernelCache(cfg_b.make_ops(), X1.to(torch.bfloat16), main["centers"],
+                        plan=plan_cache(n, M, policy=cfg_b.make_ops().policy, tier="device"))
+    Xq, Cq = X1.to(torch.bfloat16), main["centers"].to(torch.bfloat16)
+    wc = cache.sweep(u)
+    wb = km.fused_sweep(Xq, Cq, u, spec=spec, compensated=True)
+    abs_err, ratio = close_err(wc, wb, TOL["rtol"] + BF16_RTOL)
+    ms_cb = time_cuda(torch, lambda: cache.sweep(u), 5)
+    ms_bb = time_cuda(torch, lambda: km.fused_sweep(Xq, Cq, u, spec=spec, compensated=True), 5)
+    say(f"[cache] bf16 cache: {cache.K.dtype}, {cache.K.numel() * cache.K.element_size()} B; "
+        f"sweep vs bf16 B1 max abs err {abs_err:.3e} (ratio {ratio:.4f}, rtol + 2^-7); one sweep "
+        f"cached {ms_cb:.4f} ms, bf16 B1 {ms_bb:.4f} ms ({ms_cb / ms_bb:.4f}x); {card}")
+    check(ratio <= 1.0 and cache.K.dtype == torch.bfloat16, "the bf16 cached sweep is off B1")
+    del cache, wc, wb, Xq, Cq
+    times_b: dict = {}
+    est_b, st_b = falkon_fit(args.seed, X1, y1, cfg_b, stage_times=times_b)
+    e_b = sign_err(torch, est_b.predict(Xt), yt)
+    say(f"[cache] bf16 cached fit: stage seconds " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times_b.items() if isinstance(v, float))
+        + f"; test error {e_b:.6f} (fp32 cached {e1:.6f})")
+    check(bool(torch.isfinite(st_b.alpha).all()) and e_b < 0.4, "the bf16 cached fit failed")
+
+    # "auto" at the reference's default budgets: off, warned, the uncached fit
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        _, st_a = falkon_fit(args.seed, X1, y1, susy_config(FalkonConfig, task,
+                                                            knm_cache="auto"))
+    plans = [w.message.plan for w in rec if issubclass(w.category, CachePlanWarning)]
+    say(f"[cache] knm_cache='auto': {len(plans)} CachePlanWarning, tier "
+        f"{plans[0].tier if plans else None!r}; alpha bit-equal to the uncached fit: "
+        f"{torch.equal(st_a.alpha, st0.alpha)}")
+    check(len(plans) == 1 and plans[0].tier == "off" and torch.equal(st_a.alpha, st0.alpha),
+          "the auto route did not fall back to the uncached fit with a warning")
+    del est0, est1, st0, st1, st_a, est_b, st_b
+
+    # a tame lam: cached and uncached predictions nearly equal
+    ns, ms, lam_s = STREAM_SMALL
+    small = [falkon_fit(args.seed, X[:ns], y[:ns], susy_config(
+        FalkonConfig, task, num_centers=ms, lam=lam_s, knm_cache=mode))[0].predict(Xt[:ns])
+        for mode in ("off", "device")]
+    rs = rel(small[1], small[0])
+    say(f"[cache] n={ns} M={ms} lam={lam_s:g}: cached vs uncached predictions {rs:.3e} "
+        f"(bound {CACHE_SMALL_PRED_TOL:g})")
+    check(rs <= CACHE_SMALL_PRED_TOL, f"the cached fit at lam={lam_s:g} is off the uncached")
+
+    # the host tier on CACHE_HOST_N rows against the device tier
+    nh = CACHE_HOST_N
+    hplan = plan_cache(nh, M, tier="host")
+    cache = KernelCache(cfg_c.make_ops(), X[:nh], main["centers"], plan=hplan)
+    w_h, s_h = synced(torch, lambda: cache.sweep(u))
+    _, s_h2 = synced(torch, lambda: cache.sweep(u))
+    del cache
+    dcache = KernelCache(cfg_c.make_ops(), X[:nh], main["centers"],
+                         plan=plan_cache(nh, M, tier="device"))
+    w_d, s_d = synced(torch, lambda: dcache.sweep(u))
+    del dcache
+    fits = {}
+    for mode in ("device", "host"):
+        t_: dict = {}
+        fits[mode] = falkon_fit(args.seed, X[:nh], y[:nh], susy_config(
+            FalkonConfig, task, knm_cache=mode, estimate_cond=False), stage_times=t_)[1], t_
+    rh = rel(fits["host"][0].alpha, fits["device"][0].alpha)
+    say(f"[cache] host tier n={nh}: {hplan.cache_bytes} B in {-(-nh // bs)} tiles; one sweep "
+        f"{s_h:.4f} s, again {s_h2:.4f} s (device tier {s_d * 1e3:.4f} ms, synchronised wall "
+        f"clock); sweep vs device tier {rel(w_h, w_d):.3e}; fits (no cond estimate): host "
+        f"cache {fits['host'][1]['cache']:.4f} s, solve {fits['host'][1]['solve']:.4f} s; "
+        f"device cache {fits['device'][1]['cache']:.4f} s, solve "
+        f"{fits['device'][1]['solve']:.4f} s; alpha {rh:.3e} apart (bound {CACHE_HOST_TOL:g})")
+    check(rh <= CACHE_HOST_TOL, "the host-tier fit is off the device-tier fit")
+    del fits, w_h, w_d
+
+    # a scoring cache over the test rows, against B2's predict
+    Cc, alpha = main["centers"], main["alpha"]
+    est = FalkonEstimator(Cc, alpha, main["kernel"])
+    scache, s_build = synced(torch, lambda: est.build_knm_cache(Xt, tier="device"))
+    pc = est.predict(Xt, cache=scache)
+    pb = km.kernel_matmul(Xt, Cc, alpha, spec=spec)
+    S = float(km.kernel_matmul_plain(Xt, Cc, alpha.abs()[:, None], spec=spec).max())
+    limit, top = 2 * PRED_RTOL * S, float(pb.abs().max())
+    diff = float((pc.double() - pb.double()).abs().max())
+    ms_pc = time_cuda(torch, lambda: est.predict(Xt, cache=scache), 10)
+    ms_pb = time_cuda(torch, lambda: km.kernel_matmul(Xt, Cc, alpha, spec=spec), 10)
+    say(f"[cache] scoring cache m={Xt.shape[0]} n={M}: built in {s_build:.4f} s "
+        f"({scache.K.numel() * 4} B); cached predict vs B2 max abs err {diff:.3e} (limit 2 x "
+        f"{PRED_RTOL:g} x max sum|terms| {S:.4e} = {limit:.3e}; largest |prediction| "
+        f"{top:.4f}); cached predict {ms_pc:.4f} ms, B2 {ms_pb:.4f} ms "
+        f"({ms_pc / ms_pb:.4f}x); {card}")
+    check(limit <= 0.05 * top and diff <= limit, "the cached predict is off B2's")
+    del est, scache, pc, pb
+    # the 40 GB and 20 GB blocks go back to the card: later phases' tensors
+    # are not carved out of them (their fragments left the MillionSongs
+    # factor witness without room for its 18.6 GiB float64 K_MM)
+    torch.cuda.empty_cache()
+
+    row = pairwise_times(torch, km, X1[:bs].contiguous(), Cc, spec, "a K_nM-cache tile",
+                         plain=True)
+    row.update(name="pairwise_kernel_tile", base="pairwise_kernel",
+               launches=counts["pairwise_kernel"])
+    return [row]
 
 
 def phase_stream(torch, args, main, path, bf16_err, card: str) -> dict:
@@ -2534,9 +2845,13 @@ def main(argv=None) -> int:
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the SUSY phase")
     path_res = phase_path(torch, args, main_res)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the lam-path phase")
-    bf16_rows, bf16_err = phase_bf16(torch, args, main_res)
+    bf16_rows, bf16 = phase_bf16(torch, args, main_res)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the bf16 SUSY phase")
-    bf16_rows.append(phase_stream(torch, args, main_res, path_res, bf16_err, card))
+    bf16_rows += phase_f16(torch, args, main_res, bf16)
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the float16 SUSY phase")
+    bf16_rows += phase_cache(torch, args, main_res, card)
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the K_nM-cache phase")
+    bf16_rows.append(phase_stream(torch, args, main_res, path_res, bf16["err"], card))
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the streaming phase")
     msd_res = phase_msd(torch, args)
     bf16_rows.append(msd_bf16_sweep(torch, msd_res))

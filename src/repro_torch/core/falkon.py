@@ -12,7 +12,16 @@ card that default raises rather than dropping to the CPU — pass
 ``FalkonConfig(precision="bf16")`` runs the reference's end-to-end policy:
 X, the centers the sweeps read, y and the CG iterates stored bfloat16 (X
 quantized once per solve), every sweep accumulated in float32 with Kahan
-carries, and K_MM, the factors and the coefficients float32.
+carries, and K_MM, the factors and the coefficients float32. A
+``PrecisionPolicy`` with float16 storage runs the same way.
+
+``FalkonConfig(knm_cache=...)`` trades memory for time: ``"device"`` or
+``"host"`` (forced) or ``"auto"`` (routed by ``plan_cache``'s budgets, with
+a ``CachePlanWarning`` off the device tier) materializes K_nM once
+(``repro_torch.ops.KernelCache``: on the card one B3 launch a row tile),
+and the right-hand side, every CG matvec, the cond(W) power iteration and
+all L systems of a path fit are GEMMs over the stored entries.
+``FalkonEstimator.build_knm_cache`` does the same for a fixed scoring set.
 
 ``falkon_fit_path`` fits a grid of L regularizers at the data cost of one
 fit: the L systems share the centers, K_MM and T, and are stacked as L*p
@@ -27,9 +36,8 @@ on the device at once, every CG pass streams its chunks through a
 stream the same way.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP.md item: storage types other than float32 and bfloat16 (A7), the
-K_nM cache (A11: ``knm_cache``, ``FalkonEstimator.build_knm_cache``, a
-``cache=`` to predict), a mesh (A14) and mini-batch fits (A12:
+ROADMAP.md item: storage types other than float32, bfloat16 and float16
+(A7), a mesh (A14) and mini-batch fits (A12:
 ``falkon_fit_minibatch``, ``falkon_fit_minibatch_streaming``,
 ``minibatch_solve``, ``minibatch_solve_stream``, ``MinibatchConfig``,
 ``MinibatchResult``, ``MinibatchState``, ``FalkonEstimator.partial_fit``).
@@ -43,6 +51,7 @@ import contextlib
 import dataclasses
 import math
 import time
+import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -51,12 +60,12 @@ import torch
 from repro_torch.data.streaming import (ChunkSource, StreamingLoader, streaming_apply,
                                        streaming_sweep, streaming_uniform_centers)
 from repro_torch.kernels.blocked_cholesky import FactorStats
-from repro_torch.ops import KernelOps, available_ops, get_ops, plan_factor, resolve_precision
+from repro_torch.ops import (CachePlanWarning, KernelCache, KernelOps, available_ops,
+                             data_shards, get_ops, plan_cache, plan_factor, resolve_precision)
 from repro_torch.ops.base import require_supported_policy
 
 from .cg import CGResult, conjugate_gradient, conjugate_gradient_host
 from .kernels import KernelFn, make_kernel
-from .matvec import _not_ported, _not_ported_class
 from .nystrom import NystromCenters, select_centers
 from .preconditioner import (Preconditioner, PreconditionerPath, make_preconditioner,
                              make_preconditioner_path)
@@ -91,11 +100,11 @@ class FalkonConfig:
     jitter: float | None = None
     rank_deficient: bool = False
     ops_impl: str = "cuda"                 # KernelOps backend: "cuda" | "torch"
-    precision: str = "fp32"                # "fp32" | "bf16" (end-to-end bf16 storage)
+    precision: str = "fp32"                # "fp32" | "bf16" | a PrecisionPolicy
     tol: float = 0.0
     dtype: str = "float32"
     estimate_cond: bool = True             # power-iteration cond(W) diagnostic
-    knm_cache: str = "off"                 # "off" (others: A11)
+    knm_cache: str = "off"                 # "off" | "auto" | "device" | "host"
     mesh: object | None = None             # data-parallel mesh (A14)
     device: str = "cuda"
 
@@ -109,10 +118,6 @@ class FalkonConfig:
         if self.knm_cache not in KNM_CACHE_MODES:
             raise ValueError(f"unknown knm_cache {self.knm_cache!r}; "
                              f"supported: {KNM_CACHE_MODES}")
-        if self.knm_cache != "off":
-            raise NotImplementedError(
-                f"knm_cache={self.knm_cache!r}: the K_nM cache is not ported "
-                "yet: ROADMAP.md item A11")
         if self.center_selection not in CENTER_SELECTIONS:
             raise ValueError(f"unknown center_selection {self.center_selection!r}; "
                              f"supported: {CENTER_SELECTIONS}")
@@ -175,23 +180,48 @@ class FalkonEstimator(torch.nn.Module):
         self.lam = None if lam is None else float(lam)
         self.ops = get_ops(ops_impl, kernel, block_size=block_size, precision=precision)
 
-    def build_knm_cache(self, X, *, tier: str | None = None):
-        """Not ported yet: the K_nM cache is ROADMAP.md item A11."""
-        raise NotImplementedError("FalkonEstimator.build_knm_cache is not ported yet: "
-                                  "ROADMAP.md item A11")
+    def build_knm_cache(self, X, *, tier: str | None = None) -> KernelCache:
+        """Materialize K(X, centers) once for repeated scoring of the same X.
 
-    def predict(self, X, *, cache=None) -> Tensor:
-        """Score X: K(X, centers) @ alpha on the estimator's backend. A
-        ``cache`` (the K_nM cache, ROADMAP.md item A11) is refused."""
-        _refuse_cache(cache)
+        Every later ``predict(X, cache=...)`` is GEMMs over the stored
+        entries. The cache is also held by the estimator, so a plain
+        ``predict(X)`` with the same X object uses it; any other X
+        recomputes. ``tier`` forces the residency; None routes by
+        ``plan_cache``, and raises when that says "off" (a scoring set too
+        large for both budgets should stream: ``predict_stream``).
+        """
         X = torch.as_tensor(X, dtype=self.centers.dtype, device=self.centers.device)
-        return self.ops.apply(X, self.centers, self.alpha)
+        plan = plan_cache(int(X.shape[0]), int(self.centers.shape[0]),
+                          policy=self.ops.policy, tier=tier)
+        cache = KernelCache(self.ops, X, self.centers, plan=plan)
+        self._knm_cache = cache
+        return cache
 
-    def predict_stream(self, loader, *, cache=None) -> Tensor:
+    def predict(self, X, *, cache: KernelCache | None = None) -> Tensor:
+        """Score X: K(X, centers) @ alpha on the estimator's backend, or
+        from a cache's stored entries when one covers exactly this (X,
+        centers) pair. An explicit ``cache`` must serve: a stale,
+        foreign-centers or wrong-X cache raises. The held one
+        (``build_knm_cache``) is only a fast path, skipped when it does not
+        match."""
+        if cache is None:
+            held = getattr(self, "_knm_cache", None)
+            if held is None or not held.matches(self.centers) or X is not held.X:
+                X = torch.as_tensor(X, dtype=self.centers.dtype, device=self.centers.device)
+                return self.ops.apply(X, self.centers, self.alpha)
+            cache = held
+        cache.check_serves(self.centers, int(X.shape[0]), X=X)
+        return cache.apply(self.alpha)
+
+    def predict_stream(self, loader, *, cache: KernelCache | None = None) -> Tensor:
         """Score a ``StreamingLoader`` (or any re-iterable of (X_chunk, _)
         device pairs) chunk by chunk: X need never be on the device at once.
-        A ``cache`` (ROADMAP.md item A11) is refused."""
-        _refuse_cache(cache)
+        With a ``cache`` built over the loader's rows, in order, the stream
+        is not read: the prediction is the cache's GEMM apply (the cache
+        must serve this model and cover the loader's row count)."""
+        if cache is not None:
+            cache.check_serves(self.centers, getattr(loader, "n_rows", None))
+            return cache.apply(self.alpha)
         return streaming_apply(self.ops, loader, self.centers, self.alpha)
 
     def partial_fit(self, X_tail, y_tail, minibatch=None, *, key=None):
@@ -201,12 +231,6 @@ class FalkonEstimator(torch.nn.Module):
 
     def forward(self, X) -> Tensor:
         return self.predict(X)
-
-
-def _refuse_cache(cache) -> None:
-    if cache is not None:
-        raise NotImplementedError("predicting from a K_nM cache is not ported yet: "
-                                  "ROADMAP.md item A11")
 
 
 class FalkonPathResult(NamedTuple):
@@ -262,32 +286,47 @@ def _stored(ops: KernelOps, *tensors: Tensor) -> tuple[Tensor, ...]:
     return tuple(a.to(storage).contiguous() for a in tensors)
 
 
+def _solve_sweeps(ops: KernelOps, X: Tensor, y: Tensor, centers: Tensor,
+                  cache: KernelCache | None, dt: torch.dtype) -> tuple[Callable, Callable]:
+    """The matvec and the right-hand-side sweep of an in-core solve: GEMMs
+    over a cache's stored entries when one is given (it must cover exactly
+    this X and these centers), else recompute sweeps on X quantized to the
+    policy's storage once."""
+    zeros = torch.zeros((centers.shape[0],) + tuple(y.shape[1:]), dtype=dt, device=X.device)
+    if cache is not None:
+        cache.check_serves(centers, X.shape[0])
+        return cache.sweep, lambda: cache.sweep(zeros, y)
+    Xs, Cs, ys = _stored(ops, X, centers, y)
+    return (lambda g: ops.sweep(Xs, Cs, g, None)), (lambda: ops.sweep(Xs, Cs, zeros, ys))
+
+
 def falkon_solve(X: Tensor, y: Tensor, centers: Tensor, precond: Preconditioner,
                  kernel: KernelFn, lam: float, t: int, *, block_size: int = 2048,
                  ops_impl: str = "cuda", precision: str = "fp32", tol: float = 0.0,
-                 estimate_cond: bool = True, ops: KernelOps | None = None) -> FalkonState:
+                 estimate_cond: bool = True, ops: KernelOps | None = None,
+                 cache: KernelCache | None = None) -> FalkonState:
     """Run t preconditioned-CG iterations; return coefficients + diagnostics.
 
     One right-hand-side sweep, t CG sweeps and, with ``estimate_cond``, the
     power iteration's 2 x (12 + 1) = 26 width-1 sweeps: 47 sweeps at t = 20.
     Under a reduced-storage policy X, the centers and y are quantized to
     storage once here, so that no sweep casts them again, and the CG
-    iterates are stored at that width (``beta`` comes back at it).
+    iterates are stored at that width (``beta`` comes back at it). With a
+    ``cache`` (a ``KernelCache`` over exactly this X and these centers) all
+    47 are GEMMs over its stored entries; a host-tier cache runs the
+    host-driven CG loop, as a streamed solve does.
     """
     n = X.shape[0]
     if ops is None:
         ops = get_ops(ops_impl, kernel, block_size=block_size, precision=precision)
     dt = precond.T.dtype   # the solve's type: K_MM's, the coefficients'
     storage = _cg_storage(ops)
-    Xs, Cs, ys = _stored(ops, X, centers, y)
-
-    def matvec(g):
-        return ops.sweep(Xs, Cs, g, None)
-
+    matvec, rhs_sweep = _solve_sweeps(ops, X, y, centers, cache, dt)
     W = _falkon_operator(matvec, precond, lam, n)
-    zeros = torch.zeros((centers.shape[0],) + tuple(y.shape[1:]), dtype=dt, device=X.device)
-    b = precond.left(ops.sweep(Xs, Cs, zeros, ys) / n)   # r = B^T z / n (Alg. 1)
-    cg = conjugate_gradient(W, b, t, tol=tol, storage_dtype=storage)
+    b = precond.left(rhs_sweep() / n)   # r = B^T z / n (Alg. 1)
+    cg_fn = (conjugate_gradient_host if cache is not None and cache.tier == "host"
+             else conjugate_gradient)
+    cg = cg_fn(W, b, t, tol=tol, storage_dtype=storage)
     alpha = precond.coeffs(cg.x.to(dt))
 
     cond = torch.zeros((), dtype=dt, device=X.device)
@@ -326,7 +365,8 @@ def _solve_path_core(matvec: Callable, rhs_sweep: Callable, precond: Preconditio
 
 
 def falkon_solve_path(X: Tensor, y: Tensor, centers: Tensor, precond: PreconditionerPath,
-                      t: int, *, ops: KernelOps, tol: float = 0.0) -> FalkonPathState:
+                      t: int, *, ops: KernelOps, tol: float = 0.0,
+                      cache: KernelCache | None = None) -> FalkonPathState:
     """Solve the FALKON system for every lam in ``precond.lams`` at the data
     cost of ONE solve: per CG iteration a single ``ops.sweep`` of column
     width L*p (on the "cuda" backend ceil(L*p / 4) launches) instead of L
@@ -334,21 +374,12 @@ def falkon_solve_path(X: Tensor, y: Tensor, centers: Tensor, precond: Preconditi
     sweeps for any L. Per-column convergence masking (``tol``) masks each
     system on its own. Under a reduced-storage policy X, the centers and y
     are quantized once and the CG iterates stored at that width, as in
-    :func:`falkon_solve`."""
-    n = X.shape[0]
-    dt = precond.T.dtype
-    Xs, Cs, ys = _stored(ops, X, centers, y)
-
-    def matvec(G):
-        return ops.sweep(Xs, Cs, G, None)
-
-    def rhs_sweep():
-        zeros = torch.zeros((centers.shape[0],) + tuple(y.shape[1:]), dtype=dt,
-                            device=X.device)
-        return ops.sweep(Xs, Cs, zeros, ys)
-
-    cg, alpha_flat = _solve_path_core(matvec, rhs_sweep, precond, n, t, tol=tol,
-                                      storage=_cg_storage(ops))
+    :func:`falkon_solve`. A ``cache`` serves every sweep as GEMMs over its
+    stored entries, so one kernel pass covers the whole grid."""
+    matvec, rhs_sweep = _solve_sweeps(ops, X, y, centers, cache, precond.T.dtype)
+    cg, alpha_flat = _solve_path_core(matvec, rhs_sweep, precond, X.shape[0], t, tol=tol,
+                                      storage=_cg_storage(ops),
+                                      host=cache is not None and cache.tier == "host")
     alphas = precond.split(alpha_flat)             # (L, M, p)
     if y.ndim == 1:
         alphas = alphas[..., 0]
@@ -373,6 +404,32 @@ def _stage_select(generator: torch.Generator, X: Tensor, config: FalkonConfig,
 def _stage_gram(ops: KernelOps, centers: Tensor) -> Tensor:
     """Stage 2 — the M x M Gram block (the paper's memory budget)."""
     return ops.gram(centers, centers)
+
+
+def _stage_cache(ops: KernelOps, X: Tensor, centers: Tensor,
+                 config: FalkonConfig) -> KernelCache | None:
+    """Stage 1.5 — the optional materialized K_nM (the reference's).
+
+    ``knm_cache="auto"`` routes by :func:`~repro_torch.ops.plan_cache`
+    (per-shard device and host budgets) and warns with a
+    :class:`CachePlanWarning` whenever the route leaves the device tier;
+    ``"device"`` / ``"host"`` force a tier. An ``"off"`` route returns None:
+    the fit recomputes, as without a cache.
+    """
+    if config.knm_cache == "off":
+        return None
+    shards = data_shards(ops)
+    tier = None if config.knm_cache == "auto" else config.knm_cache
+    plan = plan_cache(int(X.shape[0]), int(centers.shape[0]), policy=ops.policy,
+                      shards=shards, tier=tier)
+    if tier is None and plan.tier == "host" and shards > 1:
+        plan = dataclasses.replace(
+            plan, tier="off", reason=f"host tier unsupported under {shards}-way row sharding")
+    if tier is None and plan.tier != "device":
+        warnings.warn(CachePlanWarning(plan), stacklevel=4)
+    if plan.tier == "off":
+        return None
+    return KernelCache(ops, X, centers, plan=plan)
 
 
 def _stage_precondition(KMM: Tensor, lam, n: int, config: FalkonConfig, *,
@@ -426,8 +483,9 @@ def _fit_front(generator, X, y, config: FalkonConfig, ops: KernelOps | None, lam
     new one on the device; leverage scores at ``select_lam``, default
     ``config.lam``), X and y quantized once to a reduced storage type after
     the centers are drawn from the full-precision X (K_MM stays float32),
-    K_MM, and the factorization at ``lam`` (a scalar or a grid). Returns
-    (device, kernel, ops, X, y, centers, preconditioner)."""
+    the K_nM cache when ``config.knm_cache`` asks for one (timed as
+    "cache"), K_MM, and the factorization at ``lam`` (a scalar or a grid).
+    Returns (device, kernel, ops, X, y, centers, preconditioner, cache)."""
     device = resolve_device(config.device)
     if isinstance(generator, int):
         generator = torch.Generator(device=device).manual_seed(generator)
@@ -443,13 +501,17 @@ def _fit_front(generator, X, y, config: FalkonConfig, ops: KernelOps | None, lam
     storage = _cg_storage(ops)
     if storage is not None:
         X, y = X.to(storage), y.to(storage)
+    cache = None
+    if config.knm_cache != "off":
+        with _timed(stage_times, "cache", device):
+            cache = _stage_cache(ops, X, sel.centers, config)
     with _timed(stage_times, "gram", device):
         KMM = _stage_gram(ops, sel.centers)
     with _timed(stage_times, "factor", device):
         precond = _stage_precondition(KMM, lam, X.shape[0], config, D=sel.D,
                                       report=stage_times)
     del KMM   # O(M^2) on the device; the solve needs only T and A
-    return device, kernel, ops, X, y, sel, precond
+    return device, kernel, ops, X, y, sel, precond, cache
 
 
 def falkon_fit(generator: torch.Generator | int, X, y, config: FalkonConfig, *,
@@ -465,14 +527,16 @@ def falkon_fit(generator: torch.Generator | int, X, y, config: FalkonConfig, *,
     given, receives
     the synchronised wall time of each stage: centers, gram, factor, solve,
     and the factor plan's ``factor_path`` and ``factor_block`` with the
-    blocked path's ``factor_stats``.
+    blocked path's ``factor_stats`` (and "cache" with a K_nM cache). With
+    ``config.knm_cache`` other than "off" the fit builds one ``KernelCache``
+    for its solve and drops it with the fit's other temporaries.
     """
-    device, kernel, ops, X, y, sel, precond = _fit_front(generator, X, y, config, ops,
-                                                         config.lam, stage_times)
+    device, kernel, ops, X, y, sel, precond, cache = _fit_front(
+        generator, X, y, config, ops, config.lam, stage_times)
     with _timed(stage_times, "solve", device):
         state = falkon_solve(X, y, sel.centers, precond, kernel, config.lam,
                              config.iterations, tol=config.tol,
-                             estimate_cond=config.estimate_cond, ops=ops)
+                             estimate_cond=config.estimate_cond, ops=ops, cache=cache)
     est = _stage_wrap(sel.centers, state.alpha, kernel, config, precond=precond,
                       lam=config.lam)
     return est, state
@@ -514,16 +578,18 @@ def falkon_fit_path(generator: torch.Generator | int, X, y, config: FalkonConfig
     t + 1 sweeps of width L*p. With ``X_val`` and ``y_val`` every estimator
     is scored by one stacked apply and ``result.best`` is the argmin-MSE
     model. ``stage_times`` receives what :func:`falkon_fit` records, and
-    ``score`` with a val set."""
+    ``score`` with a val set. A ``config.knm_cache`` cache is built once and
+    serves all L systems."""
     lam_vals = _check_lams(lams)
     if (X_val is None) != (y_val is None):
         raise ValueError("X_val and y_val must be given together")
     lam_ref = math.exp(sum(math.log(lam) for lam in lam_vals) / len(lam_vals))
-    device, kernel, ops, X, y, sel, precond = _fit_front(generator, X, y, config, ops,
-                                                         lam_vals, stage_times, lam_ref)
+    device, kernel, ops, X, y, sel, precond, cache = _fit_front(
+        generator, X, y, config, ops, lam_vals, stage_times, lam_ref)
     with _timed(stage_times, "solve", device):
         state = falkon_solve_path(X, y, sel.centers, precond, config.iterations, ops=ops,
-                                  tol=config.tol)
+                                  tol=config.tol, cache=cache)
+    del cache   # the path's scoring recomputes on the val rows
     ests = tuple(_stage_wrap(sel.centers, state.alphas[i], kernel, config,
                              precond=precond.system(i), lam=lam)
                  for i, lam in enumerate(lam_vals))
@@ -607,7 +673,14 @@ def _streaming_front(generator, source: ChunkSource, config: FalkonConfig, lam, 
     factorization at ``lam`` (a scalar or a grid), y's trailing shape, and a
     loader that moves chunks at the policy's storage type (a bf16 policy's
     chunks cross the bus in bf16). Leverage-score centers need a
-    pilot Gram pass that is not chunk-additive, and are refused."""
+    pilot Gram pass that is not chunk-additive, and are refused; so is a
+    K_nM cache, with the reference's message."""
+    if config.knm_cache != "off":
+        raise ValueError(
+            "streaming fits do not support knm_cache (got "
+            f"{config.knm_cache!r}): the point of streaming X is that "
+            "O(n*M) state never materializes — cache the kernel with an "
+            "in-core fit, or set knm_cache='off'")
     device = resolve_device(config.device)
     if config.center_selection != "uniform" and centers is None:
         raise ValueError("a streamed fit draws center_selection='uniform' centers only "
@@ -688,6 +761,21 @@ def falkon_fit_path_streaming(generator: torch.Generator | int, source: ChunkSou
                  for i, lam in enumerate(lam_vals))
     return FalkonPathResult(estimators=ests, state=state, lams=lam_vals, val_scores=None,
                             best_index=None)
+
+
+def _not_ported(name: str, item: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md item {item}")
+    fn.__name__ = fn.__qualname__ = name
+    return fn
+
+
+def _not_ported_class(name: str, item: str) -> type:
+    """A class whose construction raises, naming the ROADMAP.md item."""
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md item {item}")
+    return type(name, (), {"__init__": __init__,
+                           "__doc__": f"Not ported yet: ROADMAP.md item {item}."})
 
 
 falkon_fit_minibatch = _not_ported("falkon_fit_minibatch", "A12")

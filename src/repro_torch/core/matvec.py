@@ -14,16 +14,18 @@ are one-line delegates to them.
 ``streaming_knm_matvec`` and ``streaming_knm_apply`` are the same
 delegates over host-streamed chunks of X (``repro_torch.data.streaming``).
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP.md item: the materialized K_nM cache (``make_knm_cache``,
-``cached_knm_matvec``, ``cached_knm_apply``: A11).
+``make_knm_cache`` / ``cached_knm_matvec`` / ``cached_knm_apply`` are the
+functional face of the materialized K_nM cache (``repro_torch.ops.
+KernelCache``): evaluate the kernel entries once (on the card, one B3
+launch a row tile), then answer every later matvec and apply over the same
+(X, C) pair as GEMMs over the stored entries.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.data.streaming import streaming_apply, streaming_sweep
-from repro_torch.ops import PrecisionPolicy, get_ops
+from repro_torch.ops import KernelCache, PrecisionPolicy, get_ops, plan_cache
 
 from .kernels import KernelFn
 
@@ -63,21 +65,25 @@ def streaming_knm_apply(loader, C: Tensor, u: Tensor, kernel: KernelFn, *,
     return streaming_apply(ops, loader, C, u)
 
 
-def _not_ported(name: str, item: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md item {item}")
-    fn.__name__ = fn.__qualname__ = name
-    return fn
+def make_knm_cache(X: Tensor, C: Tensor, kernel: KernelFn, *, block_size: int = 2048,
+                   impl: str = "cuda", precision: "str | PrecisionPolicy" = "fp32",
+                   tier: str | None = None) -> KernelCache:
+    """Materialize K(X, C) once; later sweeps and applies are GEMMs.
+
+    ``tier`` forces the residency ("device" / "host"); None routes by the
+    ``plan_cache`` budgets, and a plan that says "off" raises: at this call
+    site the caller has asked to cache."""
+    ops = get_ops(impl, kernel, block_size=block_size, precision=precision)
+    plan = plan_cache(int(X.shape[0]), int(C.shape[0]), policy=ops.policy, tier=tier)
+    return KernelCache(ops, X, C, plan=plan)
 
 
-def _not_ported_class(name: str, item: str) -> type:
-    """A class whose construction raises, naming the ROADMAP.md item."""
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md item {item}")
-    return type(name, (), {"__init__": __init__,
-                           "__doc__": f"Not ported yet: ROADMAP.md item {item}."})
+def cached_knm_matvec(cache: KernelCache, u: Tensor, v: Tensor | None = None) -> Tensor:
+    """``K_nM^T (K_nM u + v)`` from a cache's stored entries (no kernel
+    evaluation): the cached twin of :func:`knm_matvec`."""
+    return cache.sweep(u, v)
 
 
-make_knm_cache = _not_ported("make_knm_cache", "A11")
-cached_knm_matvec = _not_ported("cached_knm_matvec", "A11")
-cached_knm_apply = _not_ported("cached_knm_apply", "A11")
+def cached_knm_apply(cache: KernelCache, u: Tensor) -> Tensor:
+    """``K_nM u`` from stored entries: the cached twin of :func:`knm_apply`."""
+    return cache.apply(u)

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 #: kernel_matvec.cu holds the fp32 B1/B2, B3 and the entry points; the
 #: compensated B1/B2 builds compile beside it, each in its own nvcc
 SOURCES = ("kernel_matvec.cu", "kernel_matvec_f32c.cu", "kernel_matvec_bf16c.cu",
-           "blocked_cholesky.cu")
+           "kernel_matvec_f16c.cu", "blocked_cholesky.cu")
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

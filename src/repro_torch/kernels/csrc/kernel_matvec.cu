@@ -57,11 +57,12 @@
 //     slice order, then adds `add`: deterministic, with no float atomics.
 //     With S = 1 the block adds `add` and stores out itself.
 //
-// B1, B2 (and B4, which is B2's launches) are built three times: fp32
-// (here), fp32 compensated (kernel_matvec_f32c.cu) and bf16 compensated
-// (kernel_matvec_bf16c.cu), the reference's compensated=True paths with bf16
-// or fp32 inputs and outputs (sweep.cuh says how). The bound is the same
-// FMA issue: bf16 halves X's bytes, which were negligible, and the Kahan
+// B1, B2 (and B4, which is B2's launches) are built four times: fp32
+// (here), fp32 compensated (kernel_matvec_f32c.cu), bf16 compensated
+// (kernel_matvec_bf16c.cu) and float16 compensated (kernel_matvec_f16c.cu),
+// the reference's compensated=True paths with fp32, bf16 or float16 inputs
+// and outputs (sweep.cuh says how). The bound is the same FMA issue: a
+// 16-bit type halves X's bytes, which were negligible, and the Kahan
 // carries add a few flops a tile, not an entry.
 //
 // B3  pairwise_kernel       K(A,B) materialized
@@ -307,13 +308,14 @@ extern "C" {
 
 const char* rt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// variant: 0 fp32, 1 fp32 compensated, 2 bf16 compensated
+// variant: 0 fp32, 1 fp32 compensated, 2 bf16 compensated, 3 float16 compensated
 // (repro_torch.kernels.kernel_matvec.VARIANTS). Type codes: rt::DType.
 int rt_sweep_grid(int P, int kind, int smem_bytes, int variant, int* grid) {
   switch (variant) {
     case 0: return (int)rt::sweep_grid_f32(P, kind, smem_bytes, grid);
     case 1: return (int)rt::sweep_grid_f32c(P, kind, smem_bytes, grid);
     case 2: return (int)rt::sweep_grid_bf16c(P, kind, smem_bytes, grid);
+    case 3: return (int)rt::sweep_grid_f16c(P, kind, smem_bytes, grid);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -339,6 +341,7 @@ int rt_fused_sweep(int variant, const void* X, const void* C, int ct, const void
     case 0: return (int)rt::fused_sweep_f32(P, a);
     case 1: return (int)rt::fused_sweep_f32c(P, a);
     case 2: return (int)rt::fused_sweep_bf16c(P, a);
+    case 3: return (int)rt::fused_sweep_f16c(P, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -348,6 +351,7 @@ int rt_matmul_slots(int P, int kind, int d, int variant, int* smem_bytes, int* s
     case 0: return (int)rt::matmul_slots_f32(P, kind, d, smem_bytes, slots);
     case 1: return (int)rt::matmul_slots_f32c(P, kind, d, smem_bytes, slots);
     case 2: return (int)rt::matmul_slots_bf16c(P, kind, d, smem_bytes, slots);
+    case 3: return (int)rt::matmul_slots_f16c(P, kind, d, smem_bytes, slots);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -375,6 +379,7 @@ int rt_kernel_matmul(int variant, const void* A, const void* B, int bt, const vo
     case 0: return (int)rt::kernel_matmul_f32(P, a);
     case 1: return (int)rt::kernel_matmul_f32c(P, a);
     case 2: return (int)rt::kernel_matmul_bf16c(P, a);
+    case 3: return (int)rt::kernel_matmul_f16c(P, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,9 +2,9 @@
 // templated on the type X (B2: A) is stored in and on Kahan compensation,
 // and the host launchers of one build of both. kernel_matvec.cu (its header
 // comment gives each kernel's bound and design) builds the fp32 plain
-// variant and B3 on this code; kernel_matvec_f32c.cu and
-// kernel_matvec_bf16c.cu build the compensated variants, each in its own
-// nvcc run, so the three compile in parallel.
+// variant and B3 on this code; kernel_matvec_f32c.cu, kernel_matvec_bf16c.cu
+// and kernel_matvec_f16c.cu build the compensated variants, each in its own
+// nvcc run, so the four compile in parallel.
 //
 // The reduced-precision, compensated form replaces the compensated=True
 // paths of repro/kernels/kernel_matvec.py (fused_sweep_pallas,
@@ -13,11 +13,12 @@
 //     same shared-memory X block; pack_centers reads C (B2: B) and u (V) at
 //     theirs and writes the same fp32 packed tiles. The ring, the FMA loop
 //     and shared memory do not change: a bf16 x bf16 product is exact in
-//     fp32, as on the MXU with preferred_element_type=float32. v (B2: add)
-//     is read, and the output written, at a type given at run time (the
-//     epilogues of the compensated builds only: load_io, store_io); a bf16
-//     output is rounded once (__float2bfloat16_rn, round to nearest even,
-//     as torch's .to(bfloat16)).
+//     fp32, as on the MXU with preferred_element_type=float32; so is a
+//     float16 x float16 product (11-bit significands). v (B2: add) is read,
+//     and the output written, at a type given at run time (the epilogues of
+//     the compensated builds only: load_io, store_io); a bf16 or float16
+//     output is rounded once (__float2bfloat16_rn, __float2half_rn: round
+//     to nearest even, as torch's .to(bfloat16) and .to(float16)).
 //   - COMP: a Kahan carry beside each accumulator, where the reference has
 //     one. t over the center (B2: B) tiles: each tile's contribution to a
 //     thread's t is summed into a delta and two-summed into t; the carry is
@@ -32,6 +33,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "tile.cuh"
@@ -49,21 +51,26 @@ static_assert(SW_XK % SW_KC == 0, "an X chunk holds whole ring chunks");
 
 // Element types of the operands and outputs given at run time
 // (repro_torch.kernels.kernel_matvec.DTYPE_CODES).
-enum DType : int { DT_F32 = 0, DT_BF16 = 1 };
+enum DType : int { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
-// Element i of a float32 or bfloat16 array, as fp32.
+// Element i of a float32, bfloat16 or float16 array, as fp32 (exact).
 __device__ __forceinline__ float load_as(const void* p, int dt, size_t i) {
-  return dt == DT_BF16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-                       : static_cast<const float*>(p)[i];
+  if (dt == DT_BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  if (dt == DT_F16) return __half2float(static_cast<const __half*>(p)[i]);
+  return static_cast<const float*>(p)[i];
 }
 
-// x into element i of a float32 or bfloat16 array.
+// x into element i of a float32, bfloat16 or float16 array, rounded once to
+// nearest even.
 __device__ __forceinline__ void store_as(void* p, int dt, size_t i, float x) {
   if (dt == DT_BF16)
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
+  else if (dt == DT_F16)
+    static_cast<__half*>(p)[i] = __float2half_rn(x);
   else
     static_cast<float*>(p)[i] = x;
 }
@@ -140,6 +147,7 @@ cudaError_t launch_pack(const void* C, int ct, const void* u, int ut, int M, int
                         float* packed, cudaStream_t stream) {
   const int nbj = (M + SW_BN - 1) / SW_BN;
   using bf = __nv_bfloat16;
+  using hf = __half;
   if (ct == DT_F32 && ut == DT_F32)
     pack_centers<P, float, float><<<nbj, SW_BN, 0, stream>>>(
         static_cast<const float*>(C), static_cast<const float*>(u), M, d, p, packed);
@@ -152,6 +160,12 @@ cudaError_t launch_pack(const void* C, int ct, const void* u, int ut, int M, int
   else if (ct == DT_F32 && ut == DT_BF16)
     pack_centers<P, float, bf><<<nbj, SW_BN, 0, stream>>>(
         static_cast<const float*>(C), static_cast<const bf*>(u), M, d, p, packed);
+  else if (ct == DT_F16 && ut == DT_F32)
+    pack_centers<P, hf, float><<<nbj, SW_BN, 0, stream>>>(
+        static_cast<const hf*>(C), static_cast<const float*>(u), M, d, p, packed);
+  else if (ct == DT_F16 && ut == DT_F16)
+    pack_centers<P, hf, hf><<<nbj, SW_BN, 0, stream>>>(
+        static_cast<const hf*>(C), static_cast<const hf*>(u), M, d, p, packed);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -827,5 +841,6 @@ cudaError_t matmul_t(const MatmulArgs& a) {
 RT_SWEEP_DECLARE(f32)
 RT_SWEEP_DECLARE(f32c)
 RT_SWEEP_DECLARE(bf16c)
+RT_SWEEP_DECLARE(f16c)
 
 }  // namespace rt

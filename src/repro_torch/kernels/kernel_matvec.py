@@ -35,13 +35,14 @@ a symmetric route that evaluates the upper triangle of tiles and stores each
 off-diagonal tile twice (:func:`pairwise_symmetric`).
 
 B1, B2 and B4 also run the reference's reduced-precision, compensated form
-(``compensated=True``): bf16 or fp32 X, C, u and v, widened to fp32 as each
-kernel loads them (a bf16 x bf16 product is exact in fp32), a Kahan/two-sum
-carry beside each accumulator (:func:`two_sum`), and a bf16 or fp32 output.
-The kernels are built in three variants (:data:`VARIANTS`): fp32 plain,
-fp32 compensated and bf16 compensated; bf16 X without compensation runs the
-fp32 plain kernel on an fp32 copy of X (exact). B3 takes fp32 only (the
-policy keeps ``gram`` fp32). Other types (float16, fp8, and float64 on the
+(``compensated=True``): fp32, bf16 or float16 X, C, u and v, widened to
+fp32 as each kernel loads them (a bf16 x bf16 or float16 x float16 product
+is exact in fp32), a Kahan/two-sum carry beside each accumulator
+(:func:`two_sum`), and an fp32, bf16 or float16 output. The kernels are
+built in four variants (:data:`VARIANTS`): fp32 plain, fp32 compensated,
+bf16 compensated and float16 compensated; 16-bit X without compensation
+runs the fp32 plain kernel on an fp32 copy of X (exact). B3 takes fp32 only
+(the policy keeps ``gram`` fp32). Other types (fp8, and float64 on the
 card) are refused, naming ROADMAP.md A7.
 """
 from __future__ import annotations
@@ -78,13 +79,14 @@ KIND_CODES = {"gaussian": 0, "laplacian": 1, "matern32": 2, "linear": 3, "polyno
 
 #: the storage types the kernels take beside the fp32 the twins compute in
 #: (csrc ``DT_*`` codes): X, C, u, v and the output of B1, B2 and B4
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the kernels' builds for (X's type, compensated) (csrc ``variant`` codes);
-#: bf16 X without compensation runs variant 0 on an fp32 copy of X
+#: 16-bit X without compensation runs variant 0 on an fp32 copy of X
 VARIANTS = {(torch.float32, False): 0, (torch.float32, True): 1,
-            (torch.bfloat16, True): 2}
-#: the builds' names, by code (csrc kernel_matvec.cu, _f32c.cu, _bf16c.cu)
-VARIANT_NAMES = ("f32", "f32c", "bf16c")
+            (torch.bfloat16, True): 2, (torch.float16, True): 3}
+#: the builds' names, by code (csrc kernel_matvec.cu, _f32c.cu, _bf16c.cu,
+#: _f16c.cu)
+VARIANT_NAMES = ("f32", "f32c", "bf16c", "f16c")
 #: the roadmap item that names the types the port does not run
 _A7 = "ROADMAP.md item A7"
 
@@ -253,7 +255,8 @@ def _sweep_grid(P: int, kind: int, smem: int, variant: int, device_index: int) -
 def _check_operands(what: str, device: torch.device, *,
                     types: tuple = tuple(DTYPE_CODES), **tensors) -> None:
     """The kernels take contiguous tensors on one CUDA device, of ``types``:
-    float32 or bfloat16 for B1, B2 and B4; float32 alone for B3 and B5-B7."""
+    float32, bfloat16 or float16 for B1, B2 and B4; float32 alone for B3
+    and B5-B7."""
     for name, t in tensors.items():
         if t is None:
             continue
@@ -288,7 +291,8 @@ def _route(what: str, *tensors: Tensor) -> str:
 
 
 def _check_out_dtype(what: str, dt: torch.dtype, card: bool = False) -> None:
-    """Outputs are float32 or bfloat16 (float64 too from a CPU twin)."""
+    """Outputs are float32, bfloat16 or float16 (float64 too from a CPU
+    twin)."""
     if dt not in DTYPE_CODES and (card or dt != torch.float64):
         raise NotImplementedError(f"{what}: output type {dt} is not ported ({_A7})")
 
@@ -304,13 +308,13 @@ def _wide(t: Tensor | None) -> Tensor | None:
 
 
 def _variant(what: str, X: Tensor, compensated: bool) -> tuple[int, Tensor]:
-    """(variant code, X as that variant reads it): bf16 X without
-    compensation widens to fp32 (exact) for the fp32 plain build."""
-    if X.dtype == torch.bfloat16 and not compensated:
+    """(variant code, X as that variant reads it): bf16 or float16 X
+    without compensation widens to fp32 (exact) for the fp32 plain build."""
+    if X.dtype in (torch.bfloat16, torch.float16) and not compensated:
         X = X.float()
     if (X.dtype, bool(compensated)) not in VARIANTS:
-        raise NotImplementedError(f"{what}: X is {X.dtype}; the CUDA kernels take float32 "
-                                  f"or bfloat16 ({_A7})")
+        raise NotImplementedError(f"{what}: X is {X.dtype}; the CUDA kernels take float32, "
+                                  f"bfloat16 or float16 ({_A7})")
     return VARIANTS[X.dtype, bool(compensated)], X
 
 
@@ -456,8 +460,8 @@ def fused_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
 
     X: (n, d), C: (M, d), u: (M,) or (M, p), v like u's rows over n or None
     -> w like u, at X's and u's promotion (the reference's ``out``). X, C,
-    u and v are fp32 or bf16; ``compensated`` runs t and w through Kahan
-    carries (the bf16 policy's accumulation). Any p >= 1: the columns run in
+    u and v are fp32, bf16 or float16; ``compensated`` runs t and w through
+    Kahan carries (the reduced-storage policies' accumulation). Any p >= 1: the columns run in
     groups of at most MAX_P (:func:`column_groups`), one launch (or, on the
     CPU, one twin call) each. ``row_mask`` (n,), 0/1: rows with mask 0
     contribute EXACTLY zero (their t_i is zeroed before the transposed
@@ -592,11 +596,11 @@ def kernel_matmul(A: Tensor, B: Tensor, V: Tensor, add: Tensor | None = None, *,
     """out = K(A, B) V (+ add) with Gram tiles that never leave the chip.
 
     A: (m, d), B: (n, d), V: (n,) or (n, p), add like the output or None;
-    each fp32 or bf16. Any p >= 1, in groups of at most MAX_P columns, one
-    launch each. ``compensated`` runs the sum over B's tiles through a Kahan
-    carry. ``out_dtype`` is float32 or bfloat16 (default: A's and V's
-    promotion, the reference's); a bf16 result is rounded once, from the
-    fp32 sum with ``add``.
+    each fp32, bf16 or float16. Any p >= 1, in groups of at most MAX_P
+    columns, one launch each. ``compensated`` runs the sum over B's tiles
+    through a Kahan carry. ``out_dtype`` is float32, bfloat16 or float16
+    (default: A's and V's promotion, the reference's); a 16-bit result is
+    rounded once, from the fp32 sum with ``add``.
     """
     if out_dtype is None:
         out_dtype = torch.promote_types(A.dtype, V.dtype)
@@ -702,7 +706,7 @@ def _pairwise_slots(kind: int, d: int, vec: bool, device_index: int) -> tuple[in
     return smem.value, slots.value
 
 
-def _pairwise_kernel_cuda(A, B, spec):
+def _pairwise_kernel_cuda(A, B, spec, out=None):
     what = "pairwise_kernel"
     m, d = A.shape
     n = B.shape[0]
@@ -710,8 +714,9 @@ def _pairwise_kernel_cuda(A, B, spec):
         raise ValueError(f"{what}: shapes A {tuple(A.shape)}, B {tuple(B.shape)}")
     if m == 0 or n == 0 or d == 0:
         raise ValueError(f"{what}: empty operand (m={m}, n={n}, d={d})")
-    _check_operands(what, A.device, types=(torch.float32,), A=A, B=B)
-    out = torch.empty(m, n, dtype=torch.float32, device=A.device)
+    if out is None:
+        out = torch.empty(m, n, dtype=torch.float32, device=A.device)
+    _check_operands(what, A.device, types=(torch.float32,), A=A, B=B, out=out)
     # the prologue's B: per 128-row tile, B k-major, ||b||^2 and a zero row
     packed = torch.empty(-(-n // SWEEP_BN) * (d + 2) * SWEEP_BN, dtype=torch.float32,
                          device=A.device)
@@ -725,13 +730,20 @@ def _pairwise_kernel_cuda(A, B, spec):
     return out
 
 
-def pairwise_kernel(A: Tensor, B: Tensor, *, spec: KernelSpec) -> Tensor:
-    """K(A, B) materialized tile by tile (the preconditioner's K_MM). Passing
-    one tensor as both A and B (:func:`pairwise_symmetric`) evaluates each
-    symmetric pair of tiles once on the card."""
-    if _route("pairwise_kernel", A, B) == "cpu":
-        return pairwise_kernel_plain(A, B, spec=spec)
-    return _pairwise_kernel_cuda(A, B, spec)
+def pairwise_kernel(A: Tensor, B: Tensor, *, spec: KernelSpec,
+                    out: Tensor | None = None) -> Tensor:
+    """K(A, B) materialized tile by tile (the preconditioner's K_MM, a row
+    tile of the K_nM cache). Passing one tensor as both A and B
+    (:func:`pairwise_symmetric`) evaluates each symmetric pair of tiles once
+    on the card. ``out``, a contiguous (m, n) float32 tensor (a row slice of
+    a larger one), receives the result in place: the kernel stores into it."""
+    if out is not None and out.shape != (A.shape[0], B.shape[0]):
+        raise ValueError(f"pairwise_kernel: out shape {tuple(out.shape)} != "
+                         f"({A.shape[0]}, {B.shape[0]})")
+    if _route("pairwise_kernel", A, B, out) == "cpu":
+        K = pairwise_kernel_plain(A, B, spec=spec)
+        return K if out is None else out.copy_(K)
+    return _pairwise_kernel_cuda(A, B, spec, out)
 
 
 pairwise_kernel.launches = 0
@@ -802,7 +814,7 @@ def _sharded_sweep_cuda(X, C, u, v, *, spec, row_mask, shard_m, compensated=Fals
     w = _transposed_pass(kernel_matmul, C, X, t, shard_m, spec=spec, compensated=compensated,
                          out_dtype=out_dt)
     sharded_sweep.launches += 1
-    # its B2 launches' build (bf16 X without compensation runs the fp32 one)
+    # its B2 launches' build (16-bit X without compensation runs the fp32 one)
     sharded_sweep.variant_launches[VARIANTS.get((X.dtype, bool(compensated)), 0)] += 1
     return w
 
@@ -826,7 +838,7 @@ def sharded_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
     run in groups of at most MAX_P, the whole schedule once per group. This
     wrapper counts one launch per group on a CUDA tensor, and each B2 launch
     inside it counts on ``kernel_matmul``'s counter too. ``t_dtype`` and
-    ``out_dtype`` are float32 or bfloat16 (or None).
+    ``out_dtype`` are float32, bfloat16 or float16 (or None).
     """
     for name, dt in (("t_dtype", t_dtype), ("out_dtype", out_dtype)):
         if dt is not None and dt not in DTYPE_CODES:

@@ -1,13 +1,17 @@
-"""The port's ``KernelOps`` layer: protocol, registry and the two backends.
+"""The port's ``KernelOps`` layer: protocol, registry, the two backends and
+the materialized K_nM cache (``KernelCache``).
 
 Importing this package registers ``"torch"`` (plain blocked reference) and
 ``"cuda"`` (hand-written Hopper kernels) in this package's own registry.
 """
 from .base import (
+    CACHE_TIERS,
     FACTOR_PATHS,
     POLICIES,
     PRECISIONS,
     SWEEP_PATHS,
+    CachePlan,
+    CachePlanWarning,
     CountingOps,
     FactorPlan,
     FactorPlanWarning,
@@ -18,18 +22,20 @@ from .base import (
     SweepPlanWarning,
     available_ops,
     get_ops,
+    plan_cache,
     plan_factor,
     plan_sweep,
     register_ops,
     resolve_precision,
 )
 from .cuda_backend import CudaKernelOps
+from .knm_cache import KernelCache, data_shards
 from .torch_backend import TorchKernelOps
 
 __all__ = [
-    "FACTOR_PATHS", "POLICIES", "PRECISIONS", "SWEEP_PATHS", "CountingOps",
-    "CudaKernelOps", "FactorPlan", "FactorPlanWarning", "KernelOps", "OpsBase",
-    "PrecisionPolicy", "SweepPlan", "SweepPlanWarning", "TorchKernelOps",
-    "available_ops", "get_ops", "plan_factor", "plan_sweep", "register_ops",
-    "resolve_precision",
+    "CACHE_TIERS", "FACTOR_PATHS", "POLICIES", "PRECISIONS", "SWEEP_PATHS", "CachePlan",
+    "CachePlanWarning", "CountingOps", "CudaKernelOps", "FactorPlan", "FactorPlanWarning",
+    "KernelCache", "KernelOps", "OpsBase", "PrecisionPolicy", "SweepPlan", "SweepPlanWarning",
+    "TorchKernelOps", "available_ops", "data_shards", "get_ops", "plan_cache", "plan_factor",
+    "plan_sweep", "register_ops", "resolve_precision",
 ]

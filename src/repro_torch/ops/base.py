@@ -23,11 +23,11 @@ float32, plain accumulation) or ``"bf16"``, the end-to-end policy: every
 n-sized buffer (X, C and v, the CG iterates, the sharded sweep's t spill)
 stored bfloat16, every contraction accumulated in float32 with Kahan
 carries, and the ``gram``, ``cholesky`` and ``coeffs`` buffers kept float32
-by override. A custom policy may store float32 or bfloat16, compensated or
-not; other storage types (float16, fp8) are refused with
+by override. A custom policy may store float32, bfloat16 or float16,
+compensated or not; other storage types (fp8) are refused with
 ``NotImplementedError`` naming ROADMAP item A7.
 
-It also hosts the two memory planners, pure arithmetic like the
+It also hosts the three memory planners, pure arithmetic like the
 reference's, each with a structured warning carrying the plan:
 
 * :func:`plan_sweep` -> :class:`SweepPlan` (+ ``SweepPlanWarning``): routes
@@ -36,6 +36,10 @@ reference's, each with a structured warning carrying the plan:
 * :func:`plan_factor` -> :class:`FactorPlan` (+ ``FactorPlanWarning``):
   routes the preconditioner's Cholesky factors incore -> blocked against the
   reference's dense-factor budget (``REPRO_FACTOR_BUDGET_MB``, 512 MB).
+* :func:`plan_cache` -> :class:`CachePlan` (+ ``CachePlanWarning``): routes a
+  materialized K_nM (``repro_torch.ops.knm_cache.KernelCache``) device ->
+  host -> off against the reference's budgets (``REPRO_KNM_BUDGET_MB``,
+  1 GiB; ``REPRO_KNM_HOST_BUDGET_MB``, 8 GiB).
 """
 from __future__ import annotations
 
@@ -112,18 +116,18 @@ def resolve_precision(precision) -> PrecisionPolicy:
 
 
 #: storage types the port runs a policy at
-STORAGES = ("float32", "bfloat16")
+STORAGES = ("float32", "bfloat16", "float16")
 
 
 def require_supported_policy(policy: PrecisionPolicy) -> None:
-    """Refuse a policy whose storage the port does not run: float32 and
-    bfloat16 storage, compensated or not, are ported; float16 and fp8 are
+    """Refuse a policy whose storage the port does not run: float32,
+    bfloat16 and float16 storage, compensated or not, are ported; fp8 is
     not."""
     if policy.storage not in STORAGES or policy.accumulate != "float32":
         raise NotImplementedError(
             f"precision policy {policy.name!r} (storage {policy.storage}, "
             f"accumulate {policy.accumulate}) is not ported: the port stores "
-            f"{' or '.join(STORAGES)} and accumulates in float32; other "
+            f"{', '.join(STORAGES)} and accumulates in float32; other "
             "storage types are ROADMAP.md item A7")
 
 
@@ -374,6 +378,114 @@ class FactorPlanWarning(UserWarning):
             f"factor path — {plan.reason}")
 
 
+# ---------------------------------------------------------------------------
+# K_nM cache planning: device-resident vs host-streamed vs recompute
+# ---------------------------------------------------------------------------
+CACHE_TIERS = ("device", "host", "off")
+
+#: Default device-memory budget for a materialized K_nM, the reference's:
+#: up to it the cache lives on the device ("device" tier); past it the tiles
+#: stay on the host and stream through a ``StreamingLoader`` ("host" tier);
+#: past ``REPRO_KNM_HOST_BUDGET_MB`` no cache is built ("off": the recompute
+#: path). Override per process with ``REPRO_KNM_BUDGET_MB``.
+DEFAULT_KNM_BUDGET = 1024 * 2**20
+DEFAULT_KNM_HOST_BUDGET = 8192 * 2**20
+
+
+def _knm_budget() -> int:
+    mb = os.environ.get("REPRO_KNM_BUDGET_MB")
+    return int(float(mb) * 2**20) if mb is not None else DEFAULT_KNM_BUDGET
+
+
+def _knm_host_budget() -> int:
+    mb = os.environ.get("REPRO_KNM_HOST_BUDGET_MB")
+    return int(float(mb) * 2**20) if mb is not None else DEFAULT_KNM_HOST_BUDGET
+
+
+@dataclasses.dataclass(frozen=True)
+class CachePlan:
+    """The K_nM-residency decision for one (n, M) problem, the reference's
+    field for field. ``cache_bytes`` is the whole K_nM at the policy's
+    storage width (a 16-bit policy halves it); ``shard_bytes`` is what one
+    data shard holds, which the budgets are charged on."""
+
+    tier: str                  # one of CACHE_TIERS
+    n: int
+    M: int
+    shards: int                # data shards splitting the rows (1 = local)
+    itemsize: int              # bytes per stored kernel entry
+    cache_bytes: int           # n * M * itemsize — the full cache
+    shard_bytes: int           # per-shard residency the budgets are charged on
+    budget_bytes: int          # device budget
+    host_budget_bytes: int     # host budget for the streamed tier
+    reason: str
+    storage_dtype: str = "float32"  # dtype the tiles are stored at
+
+
+def plan_cache(n: int, M: int, *, itemsize: int = 4,
+               policy: "PrecisionPolicy | None" = None, shards: int = 1,
+               tier: str | None = None, budget: int | None = None,
+               host_budget: int | None = None) -> CachePlan:
+    """Pick the K_nM cache tier (device / host / off) from a bytes model.
+
+    ``n * M * itemsize`` bytes at the policy's storage width (its
+    ``overrides`` do not apply: the cache stores at the data-space storage
+    type), charged per data shard. ``tier`` forces a tier; ``None`` routes
+    device -> host -> off against the budgets (``REPRO_KNM_BUDGET_MB`` /
+    ``REPRO_KNM_HOST_BUDGET_MB``). Pure arithmetic, the reference's.
+    """
+    if policy is not None:
+        itemsize = policy.storage_itemsize
+        storage_dtype = policy.storage
+    else:
+        storage_dtype = {8: "float64", 4: "float32", 2: "bfloat16"}.get(itemsize, "float32")
+    if budget is None:
+        budget = _knm_budget()
+    if host_budget is None:
+        host_budget = _knm_host_budget()
+    shards = max(int(shards), 1)
+    total = n * M * itemsize
+    shard_bytes = -(-total // shards)
+    base = dict(n=n, M=M, shards=shards, itemsize=itemsize, cache_bytes=total,
+                shard_bytes=shard_bytes, budget_bytes=budget, host_budget_bytes=host_budget,
+                storage_dtype=storage_dtype)
+    if tier is not None:
+        if tier not in CACHE_TIERS:
+            raise ValueError(f"unknown cache tier {tier!r}; supported: {CACHE_TIERS}")
+        return CachePlan(tier=tier, reason=f"tier {tier!r} forced by caller", **base)
+    if shard_bytes <= budget:
+        return CachePlan(
+            tier="device",
+            reason=(f"K_nM shard {shard_bytes}B fits the {budget}B device "
+                    f"budget — device-resident cache"),
+            **base)
+    if shard_bytes <= host_budget:
+        return CachePlan(
+            tier="host",
+            reason=(f"K_nM shard {shard_bytes}B exceeds the {budget}B device "
+                    f"budget but fits the {host_budget}B host budget — "
+                    f"host-pinned tiles, streamed sweeps"),
+            **base)
+    return CachePlan(
+        tier="off",
+        reason=(f"K_nM shard {shard_bytes}B exceeds the {host_budget}B host "
+                f"budget — recompute path (no cache)"),
+        **base)
+
+
+class CachePlanWarning(UserWarning):
+    """Structured notice that a requested K_nM cache routed off the device
+    tier (host-streamed tiles, or no cache and the recompute path). Carries
+    the full ``CachePlan`` as ``.plan``."""
+
+    def __init__(self, plan: CachePlan):
+        self.plan = plan
+        super().__init__(
+            f"falkon K_nM cache (n={plan.n}, M={plan.M}, "
+            f"shards={plan.shards}): taking the {plan.tier!r} tier — "
+            f"{plan.reason}")
+
+
 @runtime_checkable
 class KernelOps(Protocol):
     """The three primitives the whole solver needs, plus ``plan``."""
@@ -459,10 +571,13 @@ class CountingOps:
     Pure delegation plus the counters ``sweeps``, ``applies``, ``grams`` and
     ``gram_tile_evals`` (kernel-entry evaluation work in units of
     ceil(rows / block_size) row tiles, charged by every primitive that
-    evaluates kernel entries), and ``sweep_shapes``, the set of (shape,
-    dtype) of the X every sweep was given (a streamed fit's: one). PyTorch
-    runs eagerly, so unlike the JAX facade these are executed-call counts:
-    a fit's 20 CG iterations count 20 sweeps, not one traced program point.
+    evaluates kernel entries: ``sweep``, ``apply``, ``gram`` and the K_nM
+    cache's ``materialize``), the cache's ``materializes``, ``gemm_sweeps``
+    and ``gemm_applies`` (GEMMs over stored entries, which charge no tile
+    evaluations), and ``sweep_shapes``, the set of (shape, dtype) of the X
+    every sweep was given (a streamed fit's: one). PyTorch runs eagerly, so
+    unlike the JAX facade these are executed-call counts: a fit's 20 CG
+    iterations count 20 sweeps, not one traced program point.
     """
 
     def __init__(self, ops):
@@ -471,6 +586,9 @@ class CountingOps:
         self.applies = 0
         self.grams = 0
         self.gram_tile_evals = 0
+        self.materializes = 0
+        self.gemm_sweeps = 0
+        self.gemm_applies = 0
         self.sweep_shapes: set[tuple[tuple[int, ...], torch.dtype]] = set()
 
     @property
@@ -508,10 +626,26 @@ class CountingOps:
         self.gram_tile_evals += self._tiles(A.shape[0])
         return self.ops.gram(A, B)
 
+    def materialize(self, X, C):
+        # one kernel evaluation per row tile: the only K_nM entry
+        # evaluation a cached fit performs
+        self.materializes += 1
+        self.gram_tile_evals += self._tiles(X.shape[0])
+        return self.ops.materialize(X, C)
+
+    def gemm_sweep(self, K, u, v=None, row_mask=None):
+        self.gemm_sweeps += 1
+        return self.ops.gemm_sweep(K, u, v, row_mask)
+
+    def gemm_apply(self, K, u):
+        self.gemm_applies += 1
+        return self.ops.gemm_apply(K, u)
+
     def plan(self, n: int, M: int, d: int, p: int = 1, systems: int = 1) -> SweepPlan:
         return self.ops.plan(n, M, d, p, systems)
 
     def reset(self) -> None:
         self.sweeps = self.applies = self.grams = 0
         self.gram_tile_evals = 0
+        self.materializes = self.gemm_sweeps = self.gemm_applies = 0
         self.sweep_shapes = set()

@@ -13,6 +13,10 @@ Counterpart of ``repro/ops/pallas_backend.py``:
     Leaving the fused route emits a ``SweepPlanWarning``.
 * ``apply`` — the kernel matmul (B2); ``gram`` — the pairwise Gram (B3),
   held at float32 by the policy's ``gram`` override.
+* ``materialize`` / ``gemm_sweep`` / ``gemm_apply`` — the K_nM cache
+  (``GemmCacheMixin``): one B3 launch per row tile, written straight into
+  its row slice of the fp32 cache (a 16-bit cache takes a rounded copy of
+  each tile), then IEEE-fp32 cuBLAS GEMMs over the stored entries.
 
 Under a reduced-storage policy (after the reference's ``_inputs`` and
 ``_vectors``) X, C and v are cast to the storage type (a tensor already at
@@ -23,7 +27,7 @@ storage type and returns w at the coefficient type. ``gram`` stays float32.
 
 CUDA tensors run the kernels; CPU tensors run their plain twins (the same
 wrappers decide, by device). Inputs are made contiguous here; the wrappers
-take float32 and bfloat16.
+take float32, bfloat16 and float16.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.core.kernels import spec_of
 from repro_torch.kernels import kernel_matvec as km
 
 from .base import OpsBase, SweepPlan, SweepPlanWarning, plan_sweep, register_ops
+from .gemm import GemmCacheMixin
 
 Tensor = torch.Tensor
 
@@ -50,7 +55,7 @@ def _dtype(name: str) -> torch.dtype:
 
 @register_ops("cuda")
 @dataclasses.dataclass(frozen=True)
-class CudaKernelOps(OpsBase):
+class CudaKernelOps(GemmCacheMixin, OpsBase):
     """KernelOps over the CUDA kernels, keyed by the kernel's spec."""
 
     @property
@@ -148,3 +153,13 @@ class CudaKernelOps(OpsBase):
         A = _c(A.float() if A.dtype.itemsize < 4 else A)
         B = A if same else _c(B.float() if B.dtype.itemsize < 4 else B)
         return km.pairwise_kernel(A, B, spec=self._spec)
+
+    def _gram_into(self, A: Tensor, B: Tensor, out: Tensor) -> None:
+        """One B3 launch writing K(A, B) into ``out``: in place when ``out``
+        is float32, else through a float32 tile rounded into it."""
+        if out.dtype != torch.float32:
+            out.copy_(self.gram(A, B))
+            return
+        A = _c(A.float() if A.dtype.itemsize < 4 else A)
+        B = _c(B.float() if B.dtype.itemsize < 4 else B)
+        km.pairwise_kernel(A, B, spec=self._spec, out=out)

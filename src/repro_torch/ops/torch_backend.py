@@ -9,6 +9,8 @@ inputs stay fp64. Under a reduced-storage policy it quantizes as the
 reference's ``"jnp"`` backend does: X, C and v rounded through the storage
 type and computed in fp32, u at the coefficient type, and the row-block
 reduction of the sweep two-summed when the policy is ``compensated``.
+Over a materialized K_nM (``GemmCacheMixin``) the same strips give the same
+sweep bit for bit under fp32.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.kernels.kernel_matvec import two_sum
 
 from .base import (OpsBase, SweepPlan, _sweep_budget, quantize_coeffs, quantize_storage,
                    register_ops)
+from .gemm import GemmCacheMixin
 
 Tensor = torch.Tensor
 
@@ -46,8 +49,9 @@ def _pad_blocks(X: Tensor, v: Tensor | None, block_size: int,
 
 @register_ops("torch")
 @dataclasses.dataclass(frozen=True)
-class TorchKernelOps(OpsBase):
-    """Blocked row-scan reference implementation of the three primitives."""
+class TorchKernelOps(GemmCacheMixin, OpsBase):
+    """Blocked row-scan reference implementation of the three primitives
+    (and the K_nM cache's, ``GemmCacheMixin``)."""
 
     def _quant(self, a: Tensor | None) -> Tensor | None:
         """Storage quantization, fp32 compute (``base.quantize_storage``)."""

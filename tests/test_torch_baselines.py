@@ -130,10 +130,17 @@ def test_knm_delegates_match_reference(dtype, impl, p):
 
 
 def test_unported_matvec_entry_points_refuse():
-    for fn, item in ((tmatvec.make_knm_cache, "A11"), (tmatvec.cached_knm_matvec, "A11"),
-                     (tmatvec.cached_knm_apply, "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    """The K_nM cache's entry points are ported (tests/test_torch_knm_cache.py
+    holds them against the reference); what they refuse: a cache the plan
+    routes "off", and a v that does not cover the cached rows."""
+    kern = make_kernel("gaussian")
+    X = torch.randn(8, 3)
+    with pytest.raises(ValueError, match="off"):
+        tmatvec.make_knm_cache(X, X[:4], kern, impl="torch", tier="off")
+    cache = tmatvec.make_knm_cache(X, X[:4], kern, impl="torch", block_size=4, tier="device")
+    with pytest.raises(ValueError, match="rows"):
+        tmatvec.cached_knm_matvec(cache, torch.ones(4), torch.ones(5))
+    assert tmatvec.cached_knm_apply(cache, torch.ones(4)).shape == (8,)
 
 
 @pytest.mark.parametrize("impl", ["torch", "cuda"])

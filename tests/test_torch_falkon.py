@@ -27,6 +27,7 @@ from repro_torch.convert import estimator_from_numpy, preconditioner_from_numpy
 import repro_torch.core as tcore
 from repro_torch.core import falkon as tfalkon
 from repro_torch.core import make_kernel, make_preconditioner
+from repro_torch.data import ArrayChunkSource
 from repro_torch.ops import CountingOps, PrecisionPolicy, get_ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -218,20 +219,22 @@ def test_multiclass_fit_on_the_cuda_backend():
 
 def test_unported_options_refuse():
     base = dict(device="cpu")
-    for kw, item in ((dict(precision=PrecisionPolicy(name="fp16", storage="float16")), "A7"),
-                     (dict(knm_cache="auto"), "A11"),
+    for kw, item in ((dict(precision=PrecisionPolicy(name="fp8", storage="float8_e4m3fn")),
+                      "A7"),
                      (dict(mesh=object()), "A14")):
         with pytest.raises(NotImplementedError, match=item):
             FalkonConfig(**base, **kw)
+    # the K_nM cache runs in-core; a streamed fit refuses it (the reference's message)
+    with pytest.raises(ValueError, match="streaming fits do not support knm_cache"):
+        tcore.falkon_fit_streaming(0, ArrayChunkSource(*_problem(), chunk_rows=128),
+                                   FalkonConfig(**base, knm_cache="device"))
     for kw in (dict(ops_impl="pallas"), dict(knm_cache="sometimes"),
                dict(center_selection="greedy"), dict(dtype="float16")):
         with pytest.raises(ValueError):
             FalkonConfig(**base, **kw)
     est = FalkonEstimator(torch.zeros(4, D), torch.zeros(4), make_kernel("gaussian"),
                           ops_impl="torch")
-    for fn, item in ((lambda: est.build_knm_cache(torch.zeros(2, D)), "A11"),
-                     (lambda: est.predict(torch.zeros(2, D), cache=object()), "A11"),
-                     (lambda: est.partial_fit(torch.zeros(2, D), torch.zeros(2)), "A12"),
+    for fn, item in ((lambda: est.partial_fit(torch.zeros(2, D), torch.zeros(2)), "A12"),
                      (tfalkon.falkon_fit_minibatch, "A12"),
                      (tcore.falkon_fit_minibatch_streaming, "A12"),
                      (tcore.minibatch_solve, "A12"),

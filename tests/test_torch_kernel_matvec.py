@@ -173,7 +173,7 @@ def test_kernel_operand_rules():
     assert [km._pad_p(p) for p in (1, 2, 3, 4)] == [1, 4, 4, 4]
     with pytest.raises(NotImplementedError, match="A7"):
         km.kernel_matmul(torch.zeros(2, 2), torch.zeros(2, 2), torch.zeros(2),
-                         spec=tk.make_kernel("gaussian").spec, out_dtype=torch.float16)
+                         spec=tk.make_kernel("gaussian").spec, out_dtype=torch.float8_e4m3fn)
     with pytest.raises(ValueError, match="no CUDA kernel map"):
         km._kparams(tk.KernelSpec("rbf"))
 

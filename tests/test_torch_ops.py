@@ -51,7 +51,7 @@ def test_registry_and_errors():
     with pytest.raises(ValueError, match="unknown precision"):
         get_ops("torch", kern, precision="fp8")
     with pytest.raises(NotImplementedError, match="A7"):
-        get_ops("cuda", kern, precision=PrecisionPolicy(name="fp16", storage="float16"))
+        get_ops("cuda", kern, precision=PrecisionPolicy(name="fp8", storage="float8_e4m3fn"))
     assert get_ops("cuda", kern, precision="bf16").policy is POLICIES["bf16"]
     assert resolve_precision("fp32") is POLICIES["fp32"]
     assert POLICIES["bf16"].buffer_dtype("gram") == "float32"

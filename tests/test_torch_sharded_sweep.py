@@ -135,7 +135,7 @@ def test_sharded_sweep_matches_fused_twin_and_counts_no_cpu_launch():
 def test_sharded_sweep_dtype_rules():
     X, C, u, v = map(T, _data(20, 10, 3, seed=1))
     spec = make_kernel("gaussian").spec
-    for kw in (dict(t_dtype=torch.float16), dict(out_dtype=torch.float16)):
+    for kw in (dict(t_dtype=torch.float8_e4m3fn), dict(out_dtype=torch.float8_e4m3fn)):
         with pytest.raises(NotImplementedError, match="A7"):
             km.sharded_sweep(X, C, u, v, spec=spec, **kw)
     w = km.sharded_sweep(X, C, u, v, spec=spec, t_dtype=torch.bfloat16)

@@ -389,7 +389,8 @@ def test_streamed_path_fit_matches_reference():
 
 def test_streamed_fit_refusals():
     """Leverage centers need a pilot pass that is not chunk-additive; a
-    source without targets would solve for zero; a K_nM cache is A11; the
+    source without targets would solve for zero; a streamed fit refuses a
+    K_nM cache, and ``predict_stream`` refuses a cache over other rows; the
     in-core fit's estimator predicts a stream too."""
     X, y = _problem(n=300)
     src = ArrayChunkSource(X, y, chunk_rows=128)
@@ -401,8 +402,10 @@ def test_streamed_fit_refusals():
                                                                           device="cpu"))
     est = falkon_fit(0, X, y, _cfg(FalkonConfig, num_centers=16, iterations=3, device="cpu"))[0]
     loader = StreamingLoader(src, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        est.predict_stream(loader, cache=object())
+    with pytest.raises(ValueError, match="knm_cache"):
+        falkon_fit_streaming(0, src, _cfg(FalkonConfig, knm_cache="device", device="cpu"))
+    with pytest.raises(ValueError, match="covers 100 rows"):
+        est.predict_stream(loader, cache=est.build_knm_cache(X[:100]))
     assert rel(est.predict_stream(loader), est.predict(X)) < 1e-6
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
