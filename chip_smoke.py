@@ -133,6 +133,30 @@ result line:
                streamed solve beside the in-core one, prefetch 2 beside 0,
                chunks of 2^15 beside 2^18, the loader alone; B1 at the
                chunk shape for the kernels line.
+   minibatch — mini-batch fits and the coalescing server on the main
+               fit's data, centers and configuration: the in-core fit at
+               the default ``MinibatchConfig`` (chunks of 2048, a
+               projection every 4, 2 epochs: exactly 8 + 3912 B1, 1 B3, 0
+               B4 launches, 978 projections, 8,028,160 rows swept; stage
+               seconds with the solve split into steps and projections,
+               device peak, finite falling gradient norms, test error below
+               the majority class's); the same fit streamed from host numpy
+               in chunks of 2048 (3916 B1) bit-equal to in-core with
+               shuffle=False; ``partial_fit`` of the main estimator on
+               5x10^5 fresh rows (the centers' storage shared, alpha's
+               geometry kept); ``CoalescingPredictServer(max_batch=256)``
+               over 2,000 ragged requests: 6 graphs captured at warmup (12
+               B2 launches), none after 4 + 2 flushes and a
+               ``swap_model``, no B2 launch from Python while serving, every
+               request bit-equal to ``predict`` of it alone before and
+               after the swap, requests/s, rows/s and dispatch p50/p99
+               beside the per-request loop; the 8-lam path served stacked
+               (24 B2 launches at warmup) against each estimator; a scoring
+               cache against B2, refused after a swap; at n = 20,000,
+               M = 500, lam = 1e-3 the "cuda" and "torch" backends' solves
+               and a float64 one, and the full-batch fixed point; B1 at the
+               chunk and B2 at rungs 8 and 256 (and their graphs' replays)
+               for the kernels line.
 6. msd      — the large-M fit at the paper's MillionSongs size (synthetic
                YearPredictionMSD split: 463,715 / 51,630 rows, d = 90,
                gaussian sigma = 6, lam = 1e-6, M = 5x10^4, t = 20): the
@@ -170,7 +194,11 @@ result line:
                from the cached fit; B1 at p = 4 and 8 and B2 at p = 8 as
                entries of their own, their launches from the path fit; B1
                at a streamed chunk, 262,144 rows, its launches from the
-               streamed fp32 fit).
+               streamed fp32 fit; B1 at a mini-batch chunk, 2048 rows, its
+               launches from the default mini-batch fit; B2 at the server's
+               rungs of 8 and 256 rows, its launches the eager and captured
+               ones of the rung's warmup: a served dispatch replays the
+               rung's graph and launches nothing from Python).
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -354,6 +382,24 @@ CACHE_SMALL_PRED_TOL = 1e-4
 #: the host tier's alpha against the device tier's on the same rows: the
 #: same GEMMs, summed across tiles in the same order
 CACHE_HOST_TOL = 1e-5
+#: the mini-batch phase: a fresh partial_fit tail of the SUSY task (its rows
+#: drawn from seed + MB_TAIL_SEED), the served trace, a scoring cache's rows
+MB_TAIL = 500_000
+MB_TAIL_SEED = 1000
+SERVE_REQUESTS = 2000
+SERVE_BATCH = 256
+SCORING_ROWS = 16_384
+#: the stacked path tier against each estimator's predict: max |diff| over
+#: max_i sum_j |K_ij alpha_j| (fp32 sums of M = 10^4 terms)
+SERVE_STACK_RTOL = 1e-6
+#: n = 20,000, M = 500, lam = 1e-3 mini-batch solves: the backends and
+#: float64 (predictions, normwise), and the full-batch fixed point (max
+#: |move| over the largest prediction, the reference test's bound)
+MB_SMALL_TOL = 1e-3
+MB_FIXED_TOL = 1e-3
+#: the small partial_fit's move of the predictions (normwise) must exceed
+#: this, so that a refresh that returned the deployed alpha fails it
+MB_PF_MOVE = 1e-2
 SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
 SOURCE_BLOCKED = "src/repro_torch/kernels/csrc/blocked_cholesky.cu"
 DEVICE = "cuda"
@@ -385,6 +431,9 @@ SOURCES.update(fused_sweep_p4=SOURCE, fused_sweep_p8=SOURCE, kernel_matmul_p8=SO
 SOURCES.update(fused_sweep_f16c="src/repro_torch/kernels/csrc/kernel_matvec_f16c.cu",
                kernel_matmul_f16c="src/repro_torch/kernels/csrc/kernel_matvec_f16c.cu",
                pairwise_kernel_tile=SOURCE)
+#: B1 at the mini-batch chunk (2048 rows), B2 at the server's rungs of 8 and
+#: 256 rows
+SOURCES.update(fused_sweep_mb=SOURCE, kernel_matmul_rung8=SOURCE, kernel_matmul_rung256=SOURCE)
 
 
 class SmokeFailure(RuntimeError):
@@ -1163,7 +1212,7 @@ def phase_main(torch, args):
     sweep_witness(torch, km, e.kernel.spec, Xs, e.centers, u, f"n={ns} M={ms}")
     return dict(X=X, y=y, Xt=Xt, yt=yt, kernel=est.kernel, centers=est.centers,
                 alpha=est.alpha, spec=est.kernel.spec, counts=counts, fit_s=fit_s,
-                times=times, peak=peak, err=err, pred=pred, task=task)
+                times=times, peak=peak, err=err, pred=pred, task=task, est=est)
 
 
 def phase_path(torch, args, main) -> dict:
@@ -1177,7 +1226,8 @@ def phase_path(torch, args, main) -> dict:
     leverage fit (``path_leverage``). Returns the path fit's launch counts,
     which the kernels line reads, and every lam's test error, which the
     stream phase reads."""
-    from repro_torch.core import FalkonConfig, falkon_fit, falkon_fit_path
+    from repro_torch.core import (FalkonConfig, FalkonEstimator, FalkonPathResult, falkon_fit,
+                                  falkon_fit_path)
     from repro_torch.kernels import kernel_matvec as km
     from repro_torch.ops import CountingOps
     X, y, Xt, yt, task = main["X"], main["y"], main["Xt"], main["yt"], main["task"]
@@ -1245,10 +1295,16 @@ def phase_path(torch, args, main) -> dict:
     errs = [float((torch.sign(e.predict(Xt)) != yt).float().mean()) for e in res.estimators]
     say("[path] test error per lam: " + ", ".join(
         f"{lam:.3g}: {e:.6f}" for lam, e in zip(PATH_LAMS, errs)))
+    # what the minibatch phase serves stacked: the estimators and their
+    # (L, M) alphas, without the (L, M, M) A stack
+    served = FalkonPathResult(
+        estimators=tuple(FalkonEstimator(e.centers, e.alpha, e.kernel) for e in res.estimators),
+        state=res.state._replace(precond=None, beta=None), lams=res.lams, val_scores=None,
+        best_index=None)
     del res, est0
     path_small(torch, args, main)
     path_leverage(torch, args, main)
-    return dict(counts=counts, errs=errs)
+    return dict(counts=counts, errs=errs, served=served)
 
 
 def against_single(torch, args, main, tag: str, res, i: int, single_pred,
@@ -2060,6 +2116,379 @@ def phase_stream(torch, args, main, path, bf16_err, card: str) -> dict:
                 shape=f"n={CH} M={M} d={d} p=1")
 
 
+def phase_minibatch(torch, args, main, path, card: str) -> list[dict]:
+    """Mini-batch fits (A12) and the coalescing server (A13) at SUSY's full
+    width, on the main fit's data, centers and configuration: the in-core
+    fit at the reference's default ``MinibatchConfig`` (exact launch counts,
+    stage seconds with the solve split into steps and projections, device
+    peak, rows swept, gradient norms, test error); the streamed fit from
+    host numpy in chunks of 2048 against the in-core fit, shuffle=False,
+    bit for bit; ``partial_fit`` of the main estimator on a fresh tail
+    (shared centers storage, alpha moved); the server over a ragged trace (6 captures
+    at warmup, none after flushes and a ``swap_model``, every request
+    bit-equal to ``predict`` of it alone, beside the per-request loop), the
+    lam path served stacked, a scoring cache refused after a swap; at
+    n = 20,000, M = 500, lam = 1e-3 the "cuda" and "torch" backends'
+    solves against a float64 one, the full-batch fixed point, and
+    ``partial_fit`` on rows the fit has not seen against the "torch"
+    backend's and a float64 one. Returns
+    the kernels line's rows: B1 at the chunk shape, B2 at rungs 8 and 256."""
+    from repro_torch.core import (FalkonConfig, MinibatchConfig, falkon_fit_minibatch,
+                                  falkon_fit_minibatch_streaming)
+    from repro_torch.data import ArrayChunkSource
+    from repro_torch.data.synthetic import make_kernel_dataset
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.launch.serve import make_request_trace, serve_per_request
+    from repro_torch.serve import CoalescingPredictServer
+    t_phase = time.perf_counter()
+    X, y, Xt, yt, C, spec, task, est = (main[k] for k in ("X", "y", "Xt", "yt", "centers",
+                                                          "spec", "task", "est"))
+    (n, d), M = X.shape, C.shape[0]
+    config = susy_config(FalkonConfig, task)
+    mb = MinibatchConfig()
+    c, k = mb.chunk_rows, mb.project_every
+    periods = -(-n // (k * c))
+    n_pad = periods * k * c
+    steps, projections = mb.epochs * n_pad // c, mb.epochs * periods
+    majority = min(float((yt > 0).float().mean()), float((yt < 0).float().mean()))
+
+    # the in-core fit at the reference's default configuration
+    times: dict = {}
+    km.reset_launch_counts()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (est_mb, res), fit_s = synced(torch, lambda: falkon_fit_minibatch(
+        args.seed, X, y, config, mb, centers=C, stage_times=times))
+    peak = torch.cuda.max_memory_allocated() - before
+    counts = km.launch_counts()
+    gn = res.grad_norms.cpu()
+    err_mb = sign_err(torch, est_mb.predict(Xt), yt)
+    say(f"[minibatch] {mb}: n={n} pads to {n_pad} rows, {periods} periods of {k} chunks of "
+        f"{c} an epoch: {steps} steps, {projections} projections, {mb.power_iters} pilot sweeps")
+    say(f"[minibatch] {card}: fit stage seconds: " + ", ".join(
+        f"{key} {v:.4f}" for key, v in times.items() if isinstance(v, float))
+        + f"; fit total {fit_s:.4f}; a step {times['steps'] / steps * 1e3:.4f} ms, a projection "
+        f"{times['projections'] / projections * 1e3:.4f} ms (CUDA events); main CG fit "
+        f"{main['fit_s']:.4f} s (solve {main['times']['solve']:.4f})")
+    say(f"[minibatch] launches {counts}; device peak above the {before} B held before it: "
+        f"{peak} B ({peak / 2**30:.3f} GiB); rows swept {res.rows_swept:.0f}; step size "
+        f"{float(res.step_size):.6g}; grad norms first {float(gn[0]):.4e} last "
+        f"{float(gn[-1]):.4e}; test error {err_mb:.6f} (main CG fit {main['err']:.6f}, the "
+        f"majority class's {majority:.6f})")
+    want = dict(fused_sweep=mb.power_iters + steps, pairwise_kernel=1, sharded_sweep=0,
+                kernel_matmul=0)
+    check(all(counts[key] == v for key, v in want.items()),
+          f"mini-batch fit launches {counts}, expected {want}")
+    check((int(res.state.step), int(res.state.projections), times["projections_count"])
+          == (steps, projections, projections)
+          and res.rows_swept == float(mb.epochs * n_pad + mb.power_iters * c),
+          f"mini-batch steps {int(res.state.step)}, projections {int(res.state.projections)}, "
+          f"rows swept {res.rows_swept}")
+    check(bool(torch.isfinite(gn).all()) and float(gn[-1]) < float(gn[0])
+          and bool(torch.isfinite(est_mb.alpha).all()),
+          "mini-batch gradient norms or alpha not finite, or the gradient did not fall")
+    check(err_mb < majority, f"mini-batch test error {err_mb} not below the majority "
+          f"class's {majority}")
+    del est_mb, res
+
+    # streamed against in-core, shuffle=False: bit for bit
+    mb0 = dataclasses.replace(mb, shuffle=False)
+    Xh, yh = X.cpu().numpy(), y.cpu().numpy()
+    src = ArrayChunkSource(Xh, yh, chunk_rows=c)
+    ts: dict = {}
+    km.reset_launch_counts()
+    (est_s, res_s), s_s = synced(torch, lambda: falkon_fit_minibatch_streaming(
+        args.seed, src, config, mb0, centers=C, stage_times=ts))
+    cs = km.launch_counts()
+    ti: dict = {}
+    (est_i, res_i), s_i = synced(torch, lambda: falkon_fit_minibatch(
+        args.seed, X, y, config, mb0, centers=C, stage_times=ti))
+    same = (torch.equal(est_s.alpha, est_i.alpha)
+            and torch.equal(res_s.grad_norms, res_i.grad_norms))
+    say(f"[minibatch] shuffle=False: streamed from host numpy in {src.num_chunks} chunks of {c} "
+        f"(prefetch 2): {cs['fused_sweep']} B1 launches, solve {ts['solve']:.4f} s (steps "
+        f"{ts['steps']:.4f}, projections {ts['projections']:.4f}); in-core solve "
+        f"{ti['solve']:.4f} s; alpha and gradient norms bit-equal: {same} (alpha rel "
+        f"{rel(est_s.alpha, est_i.alpha):.3e})")
+    check(cs["fused_sweep"] == mb.power_iters + mb.epochs * src.num_chunks,
+          f"streamed mini-batch fit launched B1 {cs['fused_sweep']} times")
+    check(same, "the streamed shuffle=False mini-batch fit differs from the in-core one")
+    del est_s, res_s, est_i, res_i, Xh, yh, src
+
+    # partial_fit of the main estimator on a fresh tail (the same target)
+    g = torch.Generator(device=DEVICE).manual_seed(args.seed + MB_TAIL_SEED)
+    Xtail, ytail = make_kernel_dataset(
+        g, task, MB_TAIL, fn_generator=torch.Generator(device=DEVICE).manual_seed(args.seed + 1))
+    km.reset_launch_counts()
+    new, pf_s = synced(torch, lambda: est.partial_fit(Xtail, ytail, mb, generator=args.seed))
+    cp = km.launch_counts()
+    err_new = sign_err(torch, new.predict(Xt), yt)
+    shared = new.centers is est.centers and new.centers.data_ptr() == est.centers.data_ptr()
+    moved_pf = rel(new.alpha, est.alpha)
+    say(f"[minibatch] partial_fit on {MB_TAIL} fresh rows: {pf_s:.4f} s, {cp['fused_sweep']} B1 "
+        f"launches; centers storage shared: {shared}; alpha {tuple(new.alpha.shape)} "
+        f"{new.alpha.dtype} {new.alpha.device}, moved {moved_pf:.3e} (normwise) from the "
+        f"deployed alpha; test error {err_new:.6f} (before {main['err']:.6f})")
+    check(shared and (new.alpha.shape, new.alpha.dtype, new.alpha.device)
+          == (est.alpha.shape, est.alpha.dtype, est.alpha.device),
+          "partial_fit did not keep the centers storage or alpha's geometry")
+    check(bool(torch.isfinite(new.alpha).all()) and err_new < majority,
+          f"partial_fit's alpha not finite or test error {err_new} at chance")
+    check(not torch.equal(new.alpha, est.alpha), "partial_fit returned the deployed alpha")
+    check(cp["fused_sweep"] == mb.power_iters + mb.epochs * -(-MB_TAIL // (k * c)) * k,
+          f"partial_fit launched B1 {cp['fused_sweep']} times")
+    del Xtail, ytail
+
+    # the server at full width
+    trace = make_request_trace(SERVE_REQUESTS, SERVE_BATCH, d, seed=args.seed)
+    nrows = sum(r.shape[0] for r in trace)
+    server = CoalescingPredictServer(est, max_batch=SERVE_BATCH)
+    km.reset_launch_counts()
+    warm = server.warmup()
+    b2_warm = km.launch_counts()["kernel_matmul"]
+    say(f"[minibatch] server ladder {server.ladder}: {server.trace_count} graphs captured in "
+        f"{sum(warm.values()):.4f} s (" + ", ".join(f"{r}: {s:.4f}" for r, s in warm.items())
+        + f"); B2 launches at warmup {b2_warm}")
+    check(server.trace_count == len(server.ladder) == 6 and b2_warm == 2 * len(server.ladder),
+          f"warmup captured {server.trace_count} graphs with {b2_warm} B2 launches, not 6 and "
+          "12 (one eager and one captured launch a rung)")
+
+    def served_alone(model, outs, tag):
+        """Requests whose served rows are not bit-equal to predict alone."""
+        bad = [i for i, (r, o) in enumerate(zip(trace, outs))
+               if not np.array_equal(o, model.predict(torch.from_numpy(r).to(DEVICE)).cpu()
+                                     .numpy())]
+        say(f"[minibatch] {tag}: {len(trace)} requests, {len(bad)} not bit-equal to predict of "
+            "the request alone" + (f" (first {bad[:5]})" if bad else ""))
+        return bad
+
+    outs = []
+    for i in range(0, len(trace), len(trace) // 4):        # several flushes
+        outs += server.predict_many(trace[i:i + len(trace) // 4])
+    check(not served_alone(est, outs, "served, 4 flushes"), "a served request differs from "
+          "predict of it alone")
+    runs: dict = {"coalesced": [], "per-request": []}
+    lat: dict = {}
+    for name in ("coalesced", "per-request", "per-request", "coalesced"):   # in turns
+        if name == "coalesced":
+            server.stats.dispatch_seconds.clear()
+            b2 = km.launch_counts()["kernel_matmul"]
+            t0 = time.perf_counter()
+            server.predict_many(trace)
+            runs[name].append(time.perf_counter() - t0)
+            lat[name] = list(server.stats.dispatch_seconds)
+            check(km.launch_counts()["kernel_matmul"] == b2,
+                  "a dispatch launched B2 from Python instead of replaying its graph")
+        else:
+            secs = serve_per_request(est, trace)
+            runs[name].append(sum(secs))
+            lat[name] = secs
+    st = server.stats
+    for name, secs in runs.items():
+        q = np.percentile(np.asarray(lat[name]) * 1e3, [50, 99])
+        say(f"[minibatch] {card}: {name}: {len(trace)} requests ({nrows} rows) in "
+            + " / ".join(f"{s:.4f}" for s in secs) + f" s: {len(trace) / min(secs):.1f} "
+            f"requests/s, {nrows / min(secs):.0f} rows/s; per "
+            + ("dispatch" if name == "coalesced" else "request") + f" p50 {q[0]:.4f} ms, p99 "
+            f"{q[1]:.4f} ms")
+    say(f"[minibatch] server stats: {st.dispatches} dispatches, {st.requests} requests, pad "
+        f"fraction {st.pad_fraction:.4f}; coalesced / per-request "
+        f"{min(runs['coalesced']) / min(runs['per-request']):.4f}")
+    server.swap_model(new)
+    outs = server.predict_many(trace)
+    check(not served_alone(new, outs, "after swap_model(partial_fit's model)"),
+          "a request served after the swap differs from the new model's predict")
+    check(server.retraces_since_warmup() == 0,
+          f"{server.retraces_since_warmup()} captures after warmup")
+    say(f"[minibatch] captures after warmup, 8 flushes and a swap: "
+        f"{server.retraces_since_warmup()}")
+
+    # the lam path, served stacked
+    pres = path["served"]
+    pserver = CoalescingPredictServer(pres, max_batch=SERVE_BATCH)
+    km.reset_launch_counts()
+    pserver.warmup()
+    b2_path = km.launch_counts()["kernel_matmul"]
+    sub = trace[:200]
+    pouts = pserver.predict_many(sub)
+    Xcat = torch.from_numpy(np.concatenate(sub)).to(DEVICE)
+    got = torch.from_numpy(np.concatenate(pouts)).to(DEVICE)
+    A = torch.stack([e.alpha for e in pres.estimators], dim=1)
+    S = km.kernel_matmul_plain(Xcat, C, A.abs(), spec=spec).amax(dim=0)
+    worst, bit = 0.0, True
+    for i, e in enumerate(pres.estimators):
+        alone = torch.cat([e.predict(torch.from_numpy(r).to(DEVICE)) for r in sub])
+        bit = bit and torch.equal(alone, got[:, i])
+        worst = max(worst, float((alone - got[:, i]).abs().max() / S[i]))
+    say(f"[minibatch] 8-lam path served stacked: {pserver.trace_count} captures with {b2_path} "
+        f"B2 launches (2 column groups a rung, eager and captured); {len(sub)} requests against "
+        f"each estimator's predict: bit-equal {bit}, worst max |diff| / max sum|terms| "
+        f"{worst:.3e} (bound {SERVE_STACK_RTOL:g}); captures after warmup "
+        f"{pserver.retraces_since_warmup()}")
+    check(b2_path == 4 * len(pserver.ladder) and worst <= SERVE_STACK_RTOL
+          and pserver.retraces_since_warmup() == 0, "the stacked path tier is off")
+    del pserver, Xcat, got
+
+    # a scoring cache, refused once the model is swapped
+    Xs = Xt[:SCORING_ROWS]
+    cache = new.build_knm_cache(Xs, tier="device")
+    server.attach_scoring_cache(cache)
+    sc = torch.from_numpy(server.predict_scoring_set()).to(DEVICE)
+    pb = km.kernel_matmul(Xs, C, new.alpha, spec=spec)     # new.predict(Xs) would hit the cache
+    S = float(km.kernel_matmul_plain(Xs, C, new.alpha.abs()[:, None], spec=spec).max())
+    diff = float((sc.double() - pb.double()).abs().max())
+    server.swap_model(est)
+    try:
+        server.predict_scoring_set()
+        refused = False
+    except RuntimeError:
+        refused = True
+    try:
+        cache.check_serves(new.centers)
+        stale = False
+    except ValueError:
+        stale = True
+    say(f"[minibatch] scoring cache over {SCORING_ROWS} rows: served vs B2 max abs err "
+        f"{diff:.3e} (limit 2 x {PRED_RTOL:g} x {S:.4e}); after a swap detached: {refused}, "
+        f"refuses as stale: {stale}; captures after warmup {server.retraces_since_warmup()}")
+    check(diff <= 2 * PRED_RTOL * S and refused and stale
+          and server.retraces_since_warmup() == 0, "the scoring cache was not refused")
+    del cache, sc, pb
+
+    phase_minibatch_small(torch, args, main)
+
+    # the kernels line's rows: B1 at the mini-batch chunk, B2 at rungs 8 and 256
+    rows = []
+    Xc = X[:c]
+    u = torch.randn(M, generator=torch.Generator(device=DEVICE).manual_seed(23), device=DEVICE)
+    sweep = lambda: km.fused_sweep(Xc, C, u, spec=spec)
+    abs_err, ratio = close_err(sweep(), km.fused_sweep_plain(Xc, C, u[:, None], None,
+                                                             spec=spec)[0][:, 0])
+    check(ratio <= 1.0, f"B1 at the mini-batch chunk disagrees with its twin (ratio {ratio})")
+    ms = time_cuda(torch, sweep, 50)
+    plain = time_cuda(torch, lambda: km.fused_sweep_plain(Xc, C, u[:, None], None, spec=spec), 5)
+    b, by = bound(c * M * (2 * d + 10 + 4), 4 * (c * d + M * d + 2 * M))
+    say(f"[minibatch] {card}: B1 at the chunk n={c} M={M} d={d}: kernel {ms:.4f} ms, twin "
+        f"{plain:.4f} ms, bound {b:.4f} ms ({by}); max abs err {abs_err:.3e} (ratio "
+        f"{ratio:.4f})")
+    rows.append(dict(name="fused_sweep_mb", base="fused_sweep", ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, max_abs_err=abs_err,
+                     launches=counts["fused_sweep"], shape=f"n={c} M={M} d={d} p=1"))
+    alpha = est.alpha
+    for m in (8, 256):
+        Xr = Xt[:m].contiguous()
+        mm = lambda: km.kernel_matmul(Xr, C, alpha, spec=spec)
+        out = mm()
+        ref = km.kernel_matmul_plain(Xr, C, alpha[:, None], spec=spec)[:, 0]
+        S = float(km.kernel_matmul_plain(Xr, C, alpha.abs()[:, None], spec=spec).max())
+        abs_err = float((out.double() - ref.double()).abs().max())
+        check(abs_err <= PRED_RTOL * S, f"B2 at rung {m} off its twin ({abs_err:.3e})")
+        ms = time_cuda(torch, mm, 50)
+        plain = time_cuda(torch, lambda: km.kernel_matmul_plain(Xr, C, alpha[:, None],
+                                                                spec=spec), 10)
+        replay = time_cuda(torch, lambda: server._rungs[m].graph.replay(), 50)
+        b, by = bound(m * M * (2 * d + 10 + 2), 4 * (m * d + M * d + M + m))
+        say(f"[minibatch] {card}: B2 at rung {m} (n={M} d={d}): kernel {ms:.4f} ms, its "
+            f"captured graph replayed {replay:.4f} ms, twin {plain:.4f} ms, bound {b:.5f} ms "
+            f"({by}); max abs err {abs_err:.3e} (limit {PRED_RTOL:g} x {S:.4e}); "
+            f"{server.stats.rung_dispatches[m]} replays served in this phase")
+        # the main path runs B2 here as its rung's graph: the replay is its
+        # time (an eager call at this size is mostly the host's launch work)
+        rows.append(dict(name=f"kernel_matmul_rung{m}", base="kernel_matmul", ms=replay,
+                         plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=abs_err,
+                         launches=b2_warm // len(server.ladder),
+                         replays=server.stats.rung_dispatches[m],
+                         shape=f"m={m} n={M} d={d} p=1, timed as its graph's replay"))
+    del server, new
+    main.pop("est")
+    torch.cuda.empty_cache()
+    say(f"[minibatch] phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def phase_minibatch_small(torch, args, main) -> None:
+    """The mini-batch checks at n = 20,000, M = 500, lam = 1e-3 on the main
+    fit's SUSY rows (small, so that the plain twins are cheap): the "cuda"
+    and "torch" backends' ``minibatch_solve`` against a float64 one on one
+    fixed step size (shuffle=False), the full-batch fixed point of a
+    40-iteration CG fit, and that fit's ``partial_fit`` on the next 20,000
+    rows against the "torch" backend's and a float64 one."""
+    from repro_torch.core import (FalkonConfig, FalkonEstimator, MinibatchConfig, falkon_fit,
+                                  make_preconditioner, minibatch_solve)
+    from repro_torch.core.minibatch import estimate_step_size
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.ops import get_ops
+    X, y, Xt, spec, task, est = (main[k] for k in ("X", "y", "Xt", "spec", "task", "est"))
+    mb = MinibatchConfig()
+    c, k = mb.chunk_rows, mb.project_every
+    ns, ms_, lam_s = STREAM_SMALL
+    Xs, ys, Xts = X[:ns], y[:ns], Xt[:ns]
+    gsel = torch.Generator(device=DEVICE).manual_seed(args.seed + 3)
+    Cs = Xs[torch.randperm(ns, generator=gsel, device=DEVICE)[:ms_]]
+    ops_c, ops_t = (get_ops(i, est.kernel) for i in ("cuda", "torch"))
+    P32 = make_preconditioner(ops_c.gram(Cs, Cs), lam_s, ns)
+    P64 = make_preconditioner(ops_t.gram(Cs.double(), Cs.double()), lam_s, ns)
+    eta = float(estimate_step_size(ops_t, Cs.double(), P64, lam_s, Xs[:c].double(), None))
+    mbs = MinibatchConfig(shuffle=False, step_size=eta)
+    alphas = {"cuda": minibatch_solve(Xs, ys, Cs, P32, lam_s, mbs, ops=ops_c).alpha,
+              "torch": minibatch_solve(Xs, ys, Cs, P32, lam_s, mbs, ops=ops_t).alpha,
+              "float64": minibatch_solve(Xs.double(), ys.double(), Cs.double(), P64, lam_s, mbs,
+                                         ops=ops_t).alpha}
+    pr = {key: km.kernel_matmul_plain(Xts.double(), Cs.double(), a.double()[:, None],
+                                      spec=spec)[:, 0] for key, a in alphas.items()}
+    r_ct, r_c64, r_t64 = (rel(pr[a], pr[b]) for a, b in (("cuda", "torch"),
+                                                          ("cuda", "float64"),
+                                                          ("torch", "float64")))
+    small = susy_config(FalkonConfig, task, num_centers=ms_, lam=lam_s, iterations=40,
+                        estimate_cond=False)
+    est_s = falkon_fit(args.seed, Xs, ys, small)[0]
+    before_p = est_s.predict(Xts)
+    fixed = MinibatchConfig(chunk_rows=ns, project_every=1, epochs=3, momentum=0.0,
+                            avg_start=1.0, shuffle=False)
+    moved = float((est_s.partial_fit(Xs, ys, fixed).predict(Xts) - before_p).abs().max()
+                  / before_p.abs().max())
+    say(f"[minibatch] n={ns} M={ms_} lam={lam_s:g}, shuffle=False, step {eta:.6g}: predictions "
+        f"cuda vs torch backend rel {r_ct:.3e}, cuda vs float64 {r_c64:.3e}, torch vs float64 "
+        f"{r_t64:.3e} (bound {MB_SMALL_TOL:g}); the full-batch period moves a 40-iteration CG "
+        f"fit's predictions by {moved:.3e} of their largest (bound {MB_FIXED_TOL:g})")
+    check(max(r_ct, r_c64, r_t64) <= MB_SMALL_TOL, "the small mini-batch solves disagree")
+    check(moved <= MB_FIXED_TOL, "an exact solve is not a fixed point of the full-batch period")
+    # partial_fit on the next ns rows, which the fit has not seen: the
+    # card's refresh (B1 at 2048-row chunks, the warm start through
+    # beta_of_coeffs) against the "torch" backend's and a float64 one,
+    # on one fixed step size, shuffle=False
+    Xn, yn = X[ns:2 * ns], y[ns:2 * ns]
+    C64 = est_s.centers.double()
+    P64s = make_preconditioner(ops_t.gram(C64, C64), lam_s, ns)
+    eta_s = float(estimate_step_size(ops_t, C64, P64s, lam_s, Xn[:c].double(), None))
+    tail_mb = MinibatchConfig(shuffle=False, step_size=eta_s)
+    twins = {"cuda": est_s,
+             "torch": FalkonEstimator(est_s.centers, est_s.alpha, est_s.kernel, ops_impl="torch",
+                                      precond=est_s.precond, lam=lam_s),
+             "float64": FalkonEstimator(C64, est_s.alpha.double(), est_s.kernel,
+                                        ops_impl="torch", precond=P64s, lam=lam_s)}
+    km.reset_launch_counts()
+    refreshed = {key: e.partial_fit(Xn, yn, tail_mb).alpha for key, e in twins.items()}
+    b1_pf = km.launch_counts()["fused_sweep"]
+    pr = {key: km.kernel_matmul_plain(Xts.double(), C64, a.double()[:, None], spec=spec)[:, 0]
+          for key, a in refreshed.items()}
+    pr_before = km.kernel_matmul_plain(Xts.double(), C64, est_s.alpha.double()[:, None],
+                                       spec=spec)[:, 0]
+    p_ct, p_c64, p_t64 = (rel(pr[a], pr[b]) for a, b in (("cuda", "torch"),
+                                                          ("cuda", "float64"),
+                                                          ("torch", "float64")))
+    p_move = rel(pr["cuda"], pr_before)
+    say(f"[minibatch] partial_fit of that fit on the next {ns} rows (step {eta_s:.6g}, "
+        f"shuffle=False, {b1_pf} B1 launches on the card): predictions moved {p_move:.3e} "
+        f"(bound > {MB_PF_MOVE:g}); cuda vs torch backend rel {p_ct:.3e}, cuda vs float64 "
+        f"{p_c64:.3e}, torch vs float64 {p_t64:.3e} (bound {MB_SMALL_TOL:g})")
+    check(b1_pf == mb.epochs * -(-ns // (k * c)) * k,           # a given step: no pilot
+          f"the card's partial_fit launched B1 {b1_pf} times")
+    check(max(p_ct, p_c64, p_t64) <= MB_SMALL_TOL and p_move > MB_PF_MOVE,
+          "the small partial_fits disagree, or the refresh did not move the model")
+
+
 def msd_bf16_sweep(torch, msd) -> dict:
     """One bf16 sweep at the MillionSongs shape on the policy's B4 route
     (``REPRO_SWEEP_BUDGET_MB`` forces it off B1: t spilled in bf16, w fp32)
@@ -2487,13 +2916,15 @@ def phase_times(torch, main, msd, bf16_rows, path) -> list[dict]:
         base = r.get("base", r["name"])
         say(f"[times] {r['name']:19s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"launches per run {counts[r['name']]}, library "
-            + ("none" if lib is None else f"{lib:.4f} ms ({r['library']})"))
+            f"launches per run {counts[r['name']]}"
+            + (f" (then {r['replays']} graph replays)" if "replays" in r else "")
+            + ", library " + ("none" if lib is None else f"{lib:.4f} ms ({r['library']})"))
         kernels.append({
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
             "replaces": REPLACES[base], "launches": counts[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": lib,
+            **({"replays": r["replays"]} if "replays" in r else {}),
         })
     return kernels
 
@@ -2853,6 +3284,8 @@ def main(argv=None) -> int:
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the K_nM-cache phase")
     bf16_rows.append(phase_stream(torch, args, main_res, path_res, bf16["err"], card))
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the streaming phase")
+    bf16_rows += phase_minibatch(torch, args, main_res, path_res, card)
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the mini-batch phase")
     msd_res = phase_msd(torch, args)
     bf16_rows.append(msd_bf16_sweep(torch, msd_res))
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the MillionSongs phase")

@@ -1,16 +1,13 @@
 """FALKON core: kernels, CG, preconditioner, Nystrom centers, the fit, the
-lam path, the host-streamed fits and the baselines."""
+lam path, the host-streamed fits, the mini-batch fits and the baselines."""
 from .baselines import KernelPredictor, krr_direct, krr_gradient, nystrom_direct, nystrom_gradient
-from .cg import CGResult, conjugate_gradient, conjugate_gradient_host
+from .cg import CGResult, active_columns, col_dot, conjugate_gradient, conjugate_gradient_host
 from .falkon import (
     FalkonConfig,
     FalkonEstimator,
     FalkonPathResult,
     FalkonPathState,
     FalkonState,
-    MinibatchConfig,
-    MinibatchResult,
-    MinibatchState,
     falkon_fit,
     falkon_fit_minibatch,
     falkon_fit_minibatch_streaming,
@@ -21,8 +18,6 @@ from .falkon import (
     falkon_solve_path,
     falkon_solve_path_streaming,
     falkon_solve_streaming,
-    minibatch_solve,
-    minibatch_solve_stream,
     resolve_device,
 )
 from .kernels import (
@@ -47,6 +42,13 @@ from .matvec import (
     streaming_knm_apply,
     streaming_knm_matvec,
 )
+from .minibatch import (
+    MinibatchConfig,
+    MinibatchResult,
+    MinibatchState,
+    minibatch_solve,
+    minibatch_solve_stream,
+)
 from .nystrom import (
     LeveragePilot,
     NystromCenters,
@@ -67,10 +69,10 @@ __all__ = [
     "FalkonState", "GaussianKernel", "KernelPredictor", "KernelSpec", "LaplacianKernel",
     "LeveragePilot", "LinearKernel", "Matern32Kernel", "MinibatchConfig", "MinibatchResult",
     "MinibatchState", "NystromCenters", "PolynomialKernel",
-    "Preconditioner", "PreconditionerPath", "approximate_leverage_scores",
+    "Preconditioner", "PreconditionerPath", "active_columns", "approximate_leverage_scores",
     "approximate_leverage_scores_path", "available_kernels", "build_leverage_pilot",
-    "cached_knm_apply", "cached_knm_matvec", "conjugate_gradient", "conjugate_gradient_host",
-    "exact_leverage_scores", "falkon_fit", "falkon_fit_minibatch",
+    "cached_knm_apply", "cached_knm_matvec", "col_dot", "conjugate_gradient",
+    "conjugate_gradient_host", "exact_leverage_scores", "falkon_fit", "falkon_fit_minibatch",
     "falkon_fit_minibatch_streaming", "falkon_fit_path",
     "falkon_fit_path_streaming", "falkon_fit_streaming", "falkon_solve", "falkon_solve_path",
     "falkon_solve_path_streaming", "falkon_solve_streaming", "knm_apply", "knm_matvec",

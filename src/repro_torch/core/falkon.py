@@ -35,12 +35,15 @@ on the device at once, every CG pass streams its chunks through a
 ``StreamingLoader``, and ``FalkonEstimator.predict_stream`` scores a
 stream the same way.
 
+``falkon_fit_minibatch`` and ``falkon_fit_minibatch_streaming`` solve by
+stochastic preconditioned chunk sweeps with delayed projections
+(``repro_torch.core.minibatch``: on the card one B1 launch a step), and
+``FalkonEstimator.partial_fit`` refreshes a fitted model from a tail of new
+rows the same way, warm-started from its alpha, keeping its centers.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP.md item: storage types other than float32, bfloat16 and float16
-(A7), a mesh (A14) and mini-batch fits (A12:
-``falkon_fit_minibatch``, ``falkon_fit_minibatch_streaming``,
-``minibatch_solve``, ``minibatch_solve_stream``, ``MinibatchConfig``,
-``MinibatchResult``, ``MinibatchState``, ``FalkonEstimator.partial_fit``).
+(A7) and a mesh (A14).
 A large M routes the factor to the blocked out-of-core Cholesky and the
 sweep off the fused route, as planned by ``plan_factor`` and
 ``plan_sweep``.
@@ -57,8 +60,9 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.data.streaming import (ChunkSource, StreamingLoader, streaming_apply,
-                                       streaming_sweep, streaming_uniform_centers)
+from repro_torch.data.streaming import (ChunkSource, ShuffledChunkSource, StreamingLoader,
+                                       streaming_apply, streaming_sweep,
+                                       streaming_uniform_centers)
 from repro_torch.kernels.blocked_cholesky import FactorStats
 from repro_torch.ops import (CachePlanWarning, KernelCache, KernelOps, available_ops,
                              data_shards, get_ops, plan_cache, plan_factor, resolve_precision)
@@ -66,6 +70,7 @@ from repro_torch.ops.base import require_supported_policy
 
 from .cg import CGResult, conjugate_gradient, conjugate_gradient_host
 from .kernels import KernelFn, make_kernel
+from .minibatch import MinibatchConfig, MinibatchResult, minibatch_solve, minibatch_solve_stream
 from .nystrom import NystromCenters, select_centers
 from .preconditioner import (Preconditioner, PreconditionerPath, make_preconditioner,
                              make_preconditioner_path)
@@ -161,8 +166,8 @@ class FalkonEstimator(torch.nn.Module):
     ``.to()`` and ``state_dict``); ``predict`` is one ``ops.apply``.
 
     ``precond`` and ``lam`` keep the fit-time factorization for the
-    incremental path (``partial_fit``, not ported yet: ROADMAP item A12);
-    they are plain attributes and do not follow ``.to()``.
+    incremental path (``partial_fit``); they are plain attributes and do not
+    follow ``.to()``.
     """
 
     def __init__(self, centers: Tensor, alpha: Tensor, kernel: KernelFn, *,
@@ -224,10 +229,46 @@ class FalkonEstimator(torch.nn.Module):
             return cache.apply(self.alpha)
         return streaming_apply(self.ops, loader, self.centers, self.alpha)
 
-    def partial_fit(self, X_tail, y_tail, minibatch=None, *, key=None):
-        """Not ported yet: the mini-batch refresh is ROADMAP.md item A12."""
-        raise NotImplementedError("FalkonEstimator.partial_fit is not ported yet: "
-                                  "ROADMAP.md item A12")
+    def partial_fit(self, X_tail, y_tail, minibatch: MinibatchConfig | None = None, *,
+                    generator: torch.Generator | int | None = None) -> "FalkonEstimator":
+        """Refresh the model from a tail of new rows without a refit.
+
+        Reuses the centers, the fit-time factorization and the deployed
+        alpha, pulled back to the preconditioned space by
+        ``Preconditioner.beta_of_coeffs`` as the warm start; the tail then
+        trains by the delayed-projection mini-batch rule (on the card one B1
+        launch a step). ``generator`` draws the epoch shuffles (an int seeds
+        a new one on the centers' device; default seed 0). Returns a NEW
+        estimator holding the SAME centers tensor, with alpha of the same
+        shape, dtype and device, so that a server can swap it in behind its
+        captured graphs (``CoalescingPredictServer.swap_model``).
+        """
+        if self.precond is None or self.lam is None:
+            raise ValueError(
+                "partial_fit needs the fit-time preconditioner, but this estimator does "
+                "not carry one (it was built by hand). Refit with falkon_fit / "
+                "falkon_fit_minibatch / falkon_fit_streaming, which attach precond and "
+                "lam to the estimator.")
+        mb = minibatch if minibatch is not None else MinibatchConfig()
+        dev = self.centers.device
+        if generator is None or isinstance(generator, int):
+            generator = torch.Generator(device=dev).manual_seed(generator or 0)
+        dt = self.precond.T.dtype
+        X_tail = torch.as_tensor(X_tail, dtype=self.centers.dtype, device=dev)
+        y_tail = torch.as_tensor(y_tail, dtype=self.centers.dtype, device=dev)
+        want = (self.precond.q,) + tuple(y_tail.shape[1:])
+        beta0 = self.precond.beta_of_coeffs(self.alpha.to(dt))
+        if tuple(beta0.shape) != want:
+            raise ValueError(
+                f"y_tail implies a {want} iterate but the deployed alpha warm-starts a "
+                f"{tuple(beta0.shape)} one — the tail's output width must match the "
+                "fitted model's")
+        Xs, ys, Cs = _stored(self.ops, X_tail, y_tail, self.centers)
+        result = minibatch_solve(Xs, ys, Cs, self.precond, self.lam, mb, ops=self.ops,
+                                 generator=generator, beta0=beta0)
+        return FalkonEstimator(self.centers, result.alpha.to(self.alpha.dtype), self.kernel,
+                               block_size=self.block_size, ops_impl=self.ops_impl,
+                               precision=self.precision, precond=self.precond, lam=self.lam)
 
     def forward(self, X) -> Tensor:
         return self.predict(X)
@@ -477,7 +518,7 @@ def _timed(times: dict | None, name: str, device: torch.device):
 
 
 def _fit_front(generator, X, y, config: FalkonConfig, ops: KernelOps | None, lam,
-               stage_times: dict | None, select_lam: float | None = None):
+               stage_times: dict | None, select_lam: float | None = None, centers=None):
     """The stages both fits share: X and y to ``config.device`` at
     ``config.dtype``, the centers (drawn by ``generator``, an int seeding a
     new one on the device; leverage scores at ``select_lam``, default
@@ -485,7 +526,8 @@ def _fit_front(generator, X, y, config: FalkonConfig, ops: KernelOps | None, lam
     the centers are drawn from the full-precision X (K_MM stays float32),
     the K_nM cache when ``config.knm_cache`` asks for one (timed as
     "cache"), K_MM, and the factorization at ``lam`` (a scalar or a grid).
-    Returns (device, kernel, ops, X, y, centers, preconditioner, cache)."""
+    ``centers``, when given, replace the draw (no D). Returns (device,
+    kernel, ops, X, y, centers, preconditioner, cache)."""
     device = resolve_device(config.device)
     if isinstance(generator, int):
         generator = torch.Generator(device=device).manual_seed(generator)
@@ -497,7 +539,11 @@ def _fit_front(generator, X, y, config: FalkonConfig, ops: KernelOps | None, lam
     y = torch.as_tensor(y, dtype=dt, device=device)
 
     with _timed(stage_times, "centers", device):
-        sel = _stage_select(generator, X, config, kernel, lam=select_lam)
+        if centers is None:
+            sel = _stage_select(generator, X, config, kernel, lam=select_lam)
+        else:
+            C = torch.as_tensor(centers, dtype=dt, device=device)
+            sel = NystromCenters(centers=C, indices=None, D=None)
     storage = _cg_storage(ops)
     if storage is not None:
         X, y = X.to(storage), y.to(storage)
@@ -763,25 +809,83 @@ def falkon_fit_path_streaming(generator: torch.Generator | int, source: ChunkSou
                             best_index=None)
 
 
-def _not_ported(name: str, item: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md item {item}")
-    fn.__name__ = fn.__qualname__ = name
-    return fn
+# ----------------------------------------------------------------------------
+# Mini-batch fits: delayed-projection stochastic solves (core/minibatch.py)
+# ----------------------------------------------------------------------------
+def falkon_fit_minibatch(generator: torch.Generator | int, X, y, config: FalkonConfig,
+                         minibatch: MinibatchConfig | None = None, *, centers=None,
+                         ops: KernelOps | None = None, beta0: Tensor | None = None,
+                         stage_times: dict | None = None
+                         ) -> tuple[FalkonEstimator, MinibatchResult]:
+    """Fit by stochastic preconditioned chunk sweeps with delayed projections.
+
+    :func:`falkon_fit`'s select -> gram -> precondition pipeline (the factors
+    built once, routed in-core or blocked as ever) with the solve stage
+    swapped for :func:`~repro_torch.core.minibatch.minibatch_solve`: one
+    chunk sweep a step (on the card one B1 launch), a projection every
+    ``minibatch.project_every`` steps, epoch reshuffling and tail averaging.
+    ``config.iterations`` and ``config.tol`` are CG knobs and are ignored.
+    ``generator`` draws the centers, then the epoch permutations (an int
+    seeds a new one on ``config.device``); ``centers`` overrides the draw,
+    ``ops`` the backend, ``beta0`` warm-starts. ``stage_times`` receives
+    :func:`falkon_fit`'s stages and the solve's ``steps`` and
+    ``projections`` seconds and counts. A K_nM cache is refused: each step
+    sweeps a fresh chunk.
+    """
+    mb = minibatch if minibatch is not None else MinibatchConfig()
+    if config.knm_cache != "off":
+        raise ValueError(
+            "the mini-batch solver does not support knm_cache (got "
+            f"{config.knm_cache!r}): each step sweeps a fresh shuffled "
+            "chunk, so there is no fixed tile set to materialize — use "
+            "falkon_fit for cached sweeps, or set knm_cache='off'")
+    device = resolve_device(config.device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=device).manual_seed(generator)
+    device, kernel, ops, X, y, sel, precond, _ = _fit_front(
+        generator, X, y, config, ops, config.lam, stage_times, centers=centers)
+    (Cs,) = _stored(ops, sel.centers)
+    with _timed(stage_times, "solve", device):
+        result = minibatch_solve(X, y, Cs, precond, config.lam, mb, ops=ops,
+                                 generator=generator, beta0=beta0, split_times=stage_times)
+    est = _stage_wrap(sel.centers, result.alpha, kernel, config, precond=precond,
+                      lam=config.lam)
+    return est, result
 
 
-def _not_ported_class(name: str, item: str) -> type:
-    """A class whose construction raises, naming the ROADMAP.md item."""
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md item {item}")
-    return type(name, (), {"__init__": __init__,
-                           "__doc__": f"Not ported yet: ROADMAP.md item {item}."})
+def falkon_fit_minibatch_streaming(generator: torch.Generator | int, source: ChunkSource,
+                                   config: FalkonConfig,
+                                   minibatch: MinibatchConfig | None = None, *,
+                                   prefetch: int | None = None, centers=None,
+                                   ops: KernelOps | None = None,
+                                   beta0: Tensor | None = None,
+                                   stage_times: dict | None = None
+                                   ) -> tuple[FalkonEstimator, MinibatchResult]:
+    """:func:`falkon_fit_minibatch` for a host ``ChunkSource``.
 
-
-falkon_fit_minibatch = _not_ported("falkon_fit_minibatch", "A12")
-falkon_fit_minibatch_streaming = _not_ported("falkon_fit_minibatch_streaming", "A12")
-minibatch_solve = _not_ported("minibatch_solve", "A12")
-minibatch_solve_stream = _not_ported("minibatch_solve_stream", "A12")
-MinibatchConfig = _not_ported_class("MinibatchConfig", "A12")
-MinibatchResult = _not_ported_class("MinibatchResult", "A12")
-MinibatchState = _not_ported_class("MinibatchState", "A12")
+    The front half of :func:`falkon_fit_streaming` (uniform centers in one
+    host pass, K_MM and the factors in-core), then
+    :func:`~repro_torch.core.minibatch.minibatch_solve_stream` over a
+    ``StreamingLoader``: each update costs ``project_every`` chunk transfers
+    and sweeps. With ``minibatch.shuffle`` the source is wrapped in a
+    ``ShuffledChunkSource`` seeded from ``generator``, so every epoch is a
+    fresh windowed shuffle. ``stage_times`` as in
+    :func:`falkon_fit_minibatch`.
+    """
+    mb = minibatch if minibatch is not None else MinibatchConfig()
+    if mb.shuffle:
+        device = resolve_device(config.device)
+        if isinstance(generator, int):
+            generator = torch.Generator(device=device).manual_seed(generator)
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                                 device=generator.device)[0])
+        source = ShuffledChunkSource(source, seed=seed)
+    device, kernel, ops, centers, loader, out_dim, precond = _streaming_front(
+        generator, source, config, config.lam, prefetch=prefetch, centers=centers, ops=ops,
+        stage_times=stage_times)
+    (Cs,) = _stored(ops, centers)
+    with _timed(stage_times, "solve", device):
+        result = minibatch_solve_stream(loader, Cs, precond, config.lam, mb, ops=ops,
+                                        out_dim=out_dim, beta0=beta0, split_times=stage_times)
+    est = _stage_wrap(centers, result.alpha, kernel, config, precond=precond, lam=config.lam)
+    return est, result

@@ -232,18 +232,18 @@ def test_unported_options_refuse():
                dict(center_selection="greedy"), dict(dtype="float16")):
         with pytest.raises(ValueError):
             FalkonConfig(**base, **kw)
+    # the mini-batch names (A12) are ported: they run, and refuse only what
+    # the reference refuses (tests/test_torch_minibatch.py holds them)
     est = FalkonEstimator(torch.zeros(4, D), torch.zeros(4), make_kernel("gaussian"),
                           ops_impl="torch")
-    for fn, item in ((lambda: est.partial_fit(torch.zeros(2, D), torch.zeros(2)), "A12"),
-                     (tfalkon.falkon_fit_minibatch, "A12"),
-                     (tcore.falkon_fit_minibatch_streaming, "A12"),
-                     (tcore.minibatch_solve, "A12"),
-                     (tcore.minibatch_solve_stream, "A12"),
-                     (tcore.MinibatchConfig, "A12"),
-                     (tcore.MinibatchResult, "A12"),
-                     (tcore.MinibatchState, "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    with pytest.raises(ValueError, match="fit-time preconditioner"):
+        est.partial_fit(torch.zeros(2, D), torch.zeros(2))
+    with pytest.raises(ValueError, match="mini-batch solver does not support knm_cache"):
+        tfalkon.falkon_fit_minibatch(0, *_problem(), FalkonConfig(**base, knm_cache="device"))
+    assert tcore.MinibatchConfig().chunk_rows == 2048
+    assert (tcore.MinibatchState._fields[0], tcore.MinibatchResult._fields[0]) == ("beta", "state")
+    for name in ("falkon_fit_minibatch_streaming", "minibatch_solve", "minibatch_solve_stream"):
+        assert getattr(tcore, name).__module__.startswith("repro_torch.core.")
     assert (FalkonConfig().device, FalkonConfig().ops_impl) == ("cuda", "cuda")
     if not torch.cuda.is_available():
         X, y = _problem()
@@ -266,7 +266,7 @@ def test_port_is_jax_free():
     chip_smoke.py) imports jax or the reference package."""
     code = ("import sys, repro_torch, repro_torch.ops, repro_torch.convert, "
             "repro_torch.data.synthetic, repro_torch.kernels.ops, repro_torch.kernels.ref, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.serve, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
