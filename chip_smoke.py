@@ -157,6 +157,24 @@ result line:
                and a float64 one, and the full-batch fixed point; B1 at the
                chunk and B2 at rungs 8 and 256 (and their graphs' replays)
                for the kernels line.
+   mesh     — multi-device fits (``FalkonConfig(mesh=...)``, A14) on the
+               one card, each rank a process of this script started with
+               ``--mesh-worker`` once the library is built (a rank that finds
+               none stops; no rank compiles): a world of one NCCL rank runs
+               the SUSY fit bit-equal to the main fit (47 all-reduces, 47
+               B1 launches); then 4 gloo ranks sharing the card run the
+               SUSY fit at full size (47 all-reduces of 10^4 floats, 47 B1
+               launches of 10^6 rows a rank, alpha bit-equal on every rank,
+               predictions and test error against the main fit's), the
+               ragged sweep (4x10^6 - 3 rows: junk rows under a mask
+               bit-equal to the internal zero padding), ``apply`` bit-equal
+               to the wrapped backend's, the int8 wire, and the 8-lam path,
+               the streamed fit, the device-tier cached fit (n = 10^6) and
+               the default mini-batch fit (n = 2.5x10^5) against the same
+               fits on one device run first in this process (predictions,
+               test errors, facade counts, one all-reduce a sweep); stage
+               seconds, the all-reduce time and each rank's device peak.
+               A world past 300 s or a failed rank fails the smoke.
 6. msd      — the large-M fit at the paper's MillionSongs size (synthetic
                YearPredictionMSD split: 463,715 / 51,630 rows, d = 90,
                gaussian sigma = 6, lam = 1e-6, M = 5x10^4, t = 20): the
@@ -400,6 +418,32 @@ MB_FIXED_TOL = 1e-3
 #: the small partial_fit's move of the predictions (normwise) must exceed
 #: this, so that a refresh that returned the deployed alpha fails it
 MB_PF_MOVE = 1e-2
+#: the mesh phase: ranks of the gloo world sharing the card; the rows of its
+#: path, streamed, cached and lam = 1e-3 fits and of its mini-batch fit; a
+#: world's time limit (s); a mesh fit's test error against the same fit on
+#: one device (the fp32 order of the sums alone moves SUSY's by 0.00057,
+#: C.12); its predictions (normwise) against the same fit on one device,
+#: ~2x what PR 24's call 2 measured on an NVIDIA H100 80GB HBM3, 700 W
+#: (the 4 ranks' sums run in another order, and at SUSY's lam = 1e-6 that
+#: order decides alpha, C.11: measured 0.1220 for the full-size fit,
+#: 0.1128 streamed, 0.1123 cached, 1.08e-3 mini-batch; 3.81e-4 at the
+#: well-posed lam = 1e-3, held inside the reference's 2e-3); the 8-lam
+#: path's, lam = 10^-8 up (measured 0.481 0.405 0.279 0.158 0.0843 0.0422
+#: 0.0178 0.00652) and its test errors (measured 0.0041 0.0031 0.0019 at
+#: the three smallest lams, <= 0.0005 above); the int8 wire's band of
+#: relative error (the reference's); the timed all-reduce's repetitions
+MESH_RANKS = 4
+MESH_N = 1_000_000
+MESH_MB_N = 250_000
+MESH_TIMEOUT = 300
+MESH_ERR = 0.002
+MESH_WELL_POSED_LAM = 1e-3
+MESH_PRED_TOL = {"susy": 0.25, "stream": 0.25, "cache": 0.25, "minibatch": 3e-3,
+                 "lam1e-3": 1e-3}
+MESH_PATH_PRED_TOL = (1.0, 0.8, 0.56, 0.32, 0.17, 0.085, 0.036, 0.013)
+MESH_PATH_ERR = (0.008, 0.006, 0.004, 0.002, 0.002, 0.002, 0.002, 0.002)
+MESH_INT8 = (0.0, 2e-2)
+MESH_ALLREDUCE_REPS = 50
 SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
 SOURCE_BLOCKED = "src/repro_torch/kernels/csrc/blocked_cholesky.cu"
 DEVICE = "cuda"
@@ -2489,6 +2533,404 @@ def phase_minibatch_small(torch, args, main) -> None:
           "the small partial_fits disagree, or the refresh did not move the model")
 
 
+def mesh_single(torch, args, main) -> dict:
+    """The single-device counterparts of the mesh phase's fit variants, in
+    this process before any rank starts: the 8-lam path and the device-tier
+    cached fit on the first MESH_N rows (centers from the seed), the
+    streamed fit on those rows and the default mini-batch fit on the first
+    MESH_MB_N rows (the main fit's centers). Their predictions over the
+    test rows, counts and solve seconds, for the ranks' fits to be held
+    against."""
+    from repro_torch.core import FalkonConfig
+    from repro_torch.ops import CountingOps
+    cfg = susy_config(FalkonConfig, main["task"])
+    out = {}
+    for tag, fit in mesh_variants(torch, args.seed, main, cfg):
+        ops = CountingOps(cfg.make_ops())
+        times: dict = {}
+        torch.cuda.synchronize()
+        res = fit(ops, times)
+        torch.cuda.synchronize()
+        out[tag] = dict(res, counts=facade_counts(ops), solve=times["solve"])
+        say(f"[mesh] one device, {tag}: solve {times['solve']:.4f} s, facade "
+            f"{out[tag]['counts']}")
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def facade_counts(ops) -> dict:
+    return dict(sweeps=ops.sweeps, applies=ops.applies, grams=ops.grams,
+                materializes=ops.materializes, gemm_sweeps=ops.gemm_sweeps)
+
+
+def mesh_variants(torch, seed: int, data: dict, cfg):
+    """(tag, fit(ops, stage_times) -> {alpha, pred, err[, scores]}) of each
+    fit variant, the same call on one device and under the mesh (``cfg``
+    carries it): the 8-lam path, the streamed fit, the device-tier cached
+    fit (each on the first MESH_N rows), the default mini-batch fit (on
+    the first MESH_MB_N) and the in-core fit at lam = MESH_WELL_POSED_LAM
+    on the first MESH_N rows; the streamed and mini-batch fits on the main
+    fit's centers, the others on the seed's."""
+    from repro_torch.core import (MinibatchConfig, falkon_fit, falkon_fit_minibatch,
+                                  falkon_fit_path, falkon_fit_streaming)
+    from repro_torch.data import ArrayChunkSource
+    X, y, Xt, yt, C = (data[k] for k in ("X", "y", "Xt", "yt", "centers"))
+    n, nm = min(MESH_N, X.shape[0]), min(MESH_MB_N, X.shape[0])
+
+    def scored(est):
+        pred = est.predict(Xt)
+        return dict(alpha=est.alpha.cpu(), pred=pred.cpu(), err=sign_err(torch, pred, yt))
+
+    def path(ops, times):
+        res = falkon_fit_path(seed, X[:n], y[:n], cfg, PATH_LAMS, X_val=Xt, y_val=yt, ops=ops,
+                              stage_times=times)
+        preds = torch.stack([e.predict(Xt) for e in res.estimators])
+        return dict(alpha=res.state.alphas.cpu(), pred=preds.cpu(),
+                    scores=res.val_scores.cpu(), err=[sign_err(torch, p, yt) for p in preds])
+
+    def stream(ops, times):
+        src = ArrayChunkSource(X[:n].cpu().numpy(), y[:n].cpu().numpy(),
+                               chunk_rows=STREAM_CHUNK)
+        return scored(falkon_fit_streaming(seed, src, cfg, centers=C, ops=ops,
+                                           stage_times=times)[0])
+
+    def cached(ops, times):
+        c = dataclasses.replace(cfg, knm_cache="device")
+        return scored(falkon_fit(seed, X[:n], y[:n], c, ops=ops, stage_times=times)[0])
+
+    def minibatch(ops, times):
+        return scored(falkon_fit_minibatch(seed, X[:nm], y[:nm], cfg, MinibatchConfig(),
+                                           centers=C, ops=ops, stage_times=times)[0])
+
+    def posed(ops, times):
+        c = dataclasses.replace(cfg, lam=MESH_WELL_POSED_LAM)
+        return scored(falkon_fit(seed, X[:n], y[:n], c, ops=ops, stage_times=times)[0])
+
+    return (("path", path), ("stream", stream), ("cache", cached), ("minibatch", minibatch),
+            ("lam1e-3", posed))
+
+
+def phase_mesh(torch, args, main, card: str) -> None:
+    """Multi-device FALKON (A14) on the one card: ``FalkonConfig(mesh=...)``
+    over ``DistributedOps``. The kernel library is built already (no rank
+    compiles; a rank refuses to start without it). First a world of one
+    NCCL rank in a fresh process: the SUSY fit through the mesh, bit-equal
+    to the main fit with 47 all-reduces and 47 B1 launches. Then one spawn
+    of MESH_RANKS gloo ranks sharing the card (``file://`` rendezvous), in
+    turn: the SUSY fit at full size (47 all-reduces of 10^4 floats, 47 B1
+    launches of 10^6 rows a rank, alpha bit-equal across the ranks,
+    predictions within MESH_PRED_TOL and test error within MESH_ERR of the
+    main fit's), the ragged sweep (n - 3 rows: junk rows under a mask
+    bit-equal to the internal zero padding), ``apply`` bit-equal to the
+    wrapped backend's, the int8 wire (relative error in MESH_INT8), and the
+    path, streamed, cached and mini-batch fits against the same fits on one
+    device (``mesh_single``, run here first): predictions within
+    MESH_PRED_TOL, test errors within MESH_ERR, the facade counts equal and
+    one all-reduce a sweep. Prints the stage seconds, the all-reduce time a
+    sweep and the device peak of every rank. A rank that fails or a world
+    past MESH_TIMEOUT fails the phase."""
+    import tempfile
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()      # the cache phase left device memory reserved
+    single = mesh_single(torch, args, main)
+    torch.cuda.empty_cache()
+    say(f"[mesh] {card}: the single-device fits took {time.perf_counter() - t_phase:.1f} s; "
+        f"this process holds {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        one = run_world(args, "nccl", 1, d)[0]
+        alpha = main["alpha"].cpu()
+        say(f"[mesh] NCCL world of one: solve {one['times']['solve']:.4f} s (main fit "
+            f"{main['times']['solve']:.4f}; the first all-reduce, timed apart, "
+            f"{one['setup_s']:.4f} s); all-reduces {one['psums']} of "
+            f"{one['psum_floats']} floats, sweeps {one['sweeps']}, B1 launches {one['b1']}; "
+            f"alpha bit-equal to the main fit's: {torch.equal(one['alpha'], alpha)}")
+        check(torch.equal(one["alpha"], alpha) and one["alpha"].numpy().tobytes()
+              == alpha.numpy().tobytes(), "the 1-rank NCCL mesh fit's alpha differs from the "
+              "main fit's")
+        check(one["psums"] == one["sweeps"] == one["b1"] == 47
+              and one["psum_floats"] == 47 * alpha.shape[0],
+              f"the 1-rank mesh fit: {one['psums']} all-reduces, {one['sweeps']} sweeps, "
+              f"{one['b1']} B1 launches")
+        ranks = run_world(args, "gloo", MESH_RANKS, d)
+    mesh_report(torch, main, single, ranks)
+    say(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_world(args, backend: str, world: int, d: Path) -> list[dict]:
+    """Start ``world`` ranks of this script (``--mesh-worker``), wait for all
+    of them within MESH_TIMEOUT, print their logs and return their results.
+    A rank that exits non-zero or a world past its time fails the smoke;
+    every rank is killed before this returns."""
+    import torch
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--seed", str(args.seed), "--n",
+           str(args.n), "--n-test", str(args.n_test)]
+    logs = [d / f"{backend}_{r}.log" for r in range(world)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as fh:
+                procs.append(subprocess.Popen(
+                    cmd + ["--mesh-worker", backend, str(r), str(world), str(d)],
+                    stdout=fh, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent))
+        late = None
+        for p in procs:
+            try:
+                p.wait(timeout=max(MESH_TIMEOUT - (time.perf_counter() - t0), 1.0))
+            except subprocess.TimeoutExpired:
+                late = p
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for log in logs:
+        for line in log.read_text().splitlines():
+            say(f"[mesh {backend} {log.stem}] {line}")
+    check(late is None, f"the {backend} world of {world} overran its {MESH_TIMEOUT} s")
+    codes = [p.returncode for p in procs]
+    check(all(c == 0 for c in codes), f"the {backend} world's ranks exited {codes}")
+    say(f"[mesh] the {backend} world of {world} took {time.perf_counter() - t0:.1f} s")
+    return [torch.load(d / f"{backend}_{r}.pt", weights_only=True) for r in range(world)]
+
+
+def mesh_report(torch, main, single: dict, ranks: list[dict]) -> None:
+    """Hold the gloo world's results (``mesh_world``) against each other, the
+    main fit and the single-device fits, print every reading, then fail on
+    every check that did not hold."""
+    r0 = ranks[0]
+    M = main["alpha"].shape[0]
+    fails: list[str] = []
+
+    def need(cond: bool, msg: str) -> None:
+        if not cond:
+            fails.append(msg)
+
+    need(all(torch.equal(r["centers"], main["centers"].cpu()) for r in ranks),
+         "a rank drew other centers than the main fit's")
+    for tag in ("susy",) + tuple(single):
+        a = r0[tag]["alpha"].numpy().tobytes()
+        need(all(r[tag]["alpha"].numpy().tobytes() == a for r in ranks),
+             f"the {tag} mesh fit's alpha differs across the ranks")
+    s = r0["susy"]
+    pr, de = rel(s["pred"], main["pred"].cpu()), abs(s["err"] - main["err"])
+    say(f"[mesh] gloo x{len(ranks)}, SUSY n={main['X'].shape[0]}: alpha bit-equal on every "
+        f"rank; predictions {pr:.4e} from the main fit's (bound {MESH_PRED_TOL['susy']:g}); "
+        f"test error {s['err']:.6f} vs {main['err']:.6f} (bound {MESH_ERR} apart); solve "
+        f"{s['times']['solve']:.4f} s vs {main['times']['solve']:.4f} s")
+    need(pr <= MESH_PRED_TOL["susy"] and de <= MESH_ERR, "the 4-rank SUSY fit is off the main "
+         f"fit: predictions {pr:.4e}, test error {de:.6f} apart")
+    for i, r in enumerate(ranks):
+        s = r["susy"]
+        say(f"[mesh] rank {i}: shard {r['shard']}, SUSY stage seconds " + ", ".join(
+            f"{k} {v:.4f}" for k, v in s["times"].items()) + f"; all-reduce of {M} floats "
+            f"{r['allreduce_ms']:.4f} ms (gloo, {MESH_ALLREDUCE_REPS} reps, first "
+            f"{r['setup_s']:.4f} s); device peak {s['peak'] / 2**30:.3f} GiB (SUSY), "
+            + ", ".join(f"{t} {r[t]['peak'] / 2**30:.3f}" for t in single) + " GiB")
+        need(s["psums"] == s["sweeps"] == s["b1"] == 47 and s["psum_floats"] == 47 * M
+             and s["shapes"] == [[[main["X"].shape[0] // len(ranks), main["X"].shape[1]],
+                                  "torch.float32"]],
+             f"rank {i}'s SUSY fit: {s['psums']} all-reduces ({s['psum_floats']} floats), "
+             f"{s['sweeps']} sweeps, {s['b1']} B1 launches, sweep shapes {s['shapes']}")
+        need(r["ragged_bit_equal"] and r["apply_bit_equal"],
+             f"rank {i}: ragged masked sweep bit-equal {r['ragged_bit_equal']}, apply "
+             f"bit-equal {r['apply_bit_equal']}")
+        need(MESH_INT8[0] < r["int8_rel"] < MESH_INT8[1],
+             f"rank {i}: the int8 wire's relative error {r['int8_rel']}")
+        for t, one in single.items():
+            counts = dict(r[t]["counts"])
+            psums = counts.pop("psums")
+            need(counts == one["counts"] and psums == one["counts"]["sweeps"]
+                 + one["counts"]["gemm_sweeps"],
+                 f"rank {i}'s {t} mesh fit counts {r[t]['counts']}, one device's "
+                 f"{one['counts']}")
+    say(f"[mesh] ragged sweep (n - 3 rows): junk rows under a mask bit-equal to the zero "
+        f"padding on every rank: {all(r['ragged_bit_equal'] for r in ranks)}; apply: each "
+        f"rank's rows bit-equal to the wrapped backend's apply of them: "
+        f"{all(r['apply_bit_equal'] for r in ranks)}, all rows {r0['apply_rel']:.4e} from its "
+        f"apply of all rows (B2 slices the centers {r0['apply_slices'][0]}-fold at a rank's "
+        f"rows, {r0['apply_slices'][1]}-fold at all); int8 wire relative error "
+        f"{r0['int8_rel']:.4e} (band {MESH_INT8})")
+    for t, one in single.items():
+        m = r0[t]
+        if t == "path":
+            prs = [rel(a, b) for a, b in zip(m["pred"], one["pred"])]
+            des = [abs(a - b) for a, b in zip(m["err"], one["err"])]
+            say(f"[mesh] path: mesh solve {m['times']['solve']:.4f} s (rank 0) vs one device "
+                f"{one['solve']:.4f} s; per lam (10^-8 up) predictions "
+                + " ".join(f"{x:.3e}" for x in prs) + " apart (bounds "
+                + " ".join(f"{x:g}" for x in MESH_PATH_PRED_TOL) + "), test errors "
+                + " ".join(f"{x:.6f}" for x in des) + " apart (bounds "
+                + " ".join(f"{x:g}" for x in MESH_PATH_ERR) + "), validation MSE "
+                f"{rel(m['scores'], one['scores']):.4e} apart; facade {m['counts']}")
+            need(all(x <= b for x, b in zip(prs, MESH_PATH_PRED_TOL))
+                 and all(x <= b for x, b in zip(des, MESH_PATH_ERR)),
+                 "the path mesh fit is off the single-device path")
+            continue
+        pr, de = rel(m["pred"], one["pred"]), abs(m["err"] - one["err"])
+        say(f"[mesh] {t}: mesh solve {m['times']['solve']:.4f} s (rank 0) vs one device "
+            f"{one['solve']:.4f} s; predictions {pr:.4e} apart (bound "
+            f"{MESH_PRED_TOL[t]:g}), test error {de:.6f} from one device's (bound "
+            f"{MESH_ERR}); facade {m['counts']}")
+        need(pr <= MESH_PRED_TOL[t] and de <= MESH_ERR,
+             f"the {t} mesh fit is off the single-device fit: predictions {pr:.4e}, test "
+             f"error {de:.6f} apart")
+    check(not fails, "mesh phase: " + "; ".join(fails))
+
+
+def mesh_worker(torch, args) -> int:
+    """One rank of the mesh phase (``--mesh-worker BACKEND RANK WORLD DIR``):
+    the card, the process group (``file://`` rendezvous in DIR), a 1-D
+    ``DeviceMesh`` over the world, then the world-of-one SUSY fit (NCCL) or
+    ``mesh_world`` (gloo); its results to DIR/<backend>_<rank>.pt."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import data_group
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    backend, rank, world, d = args.mesh_worker
+    rank, world, d = int(rank), int(world), Path(d)
+    check(torch.cuda.is_available(), "a mesh rank needs the card")
+    check(build.library().exists(), f"rank {rank}: no kernel library at {build.library()}; "
+          "the smoke builds it before it starts the ranks")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{d / ('store_' + backend)}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=MESH_TIMEOUT))
+    try:
+        mesh = make_mesh((world,), ("data",), device_type=DEVICE)
+        # the data group's first all-reduce sets up its communicator (NCCL
+        # lazily): timed apart, so that no fit's solve pays it
+        group = data_group(mesh, ("data",))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(torch.zeros(1, device=DEVICE), group=group)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        fn = mesh_one if backend == "nccl" else mesh_world
+        torch.save(dict(fn(torch, args, mesh, rank), setup_s=setup_s),
+                   d / f"{backend}_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_fit(torch, fit, mesh, cfg):
+    """Run ``fit(ops, stage_times)`` under the mesh with a ``CountingOps``
+    inside the ``DistributedOps`` (what ``FalkonConfig(mesh=...)`` resolves
+    a counting facade to): (its result, the facade and all-reduce counts,
+    the B1 launches, the sweeps' X shapes, the stage seconds, the device
+    peak)."""
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.ops import CountingOps, DistributedOps, get_ops
+    inner = CountingOps(get_ops(cfg.ops_impl, cfg.make_kernel(), block_size=cfg.block_size,
+                                precision=cfg.precision))
+    ops = DistributedOps(inner, mesh, cfg.data_axes)
+    times: dict = {}
+    km.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = fit(ops, times)
+    torch.cuda.synchronize()
+    counts = dict(facade_counts(inner), psums=ops.psums)
+    return res, dict(counts=counts, psums=ops.psums, psum_floats=ops.psum_floats,
+                     sweeps=inner.sweeps, b1=km.launch_counts()["fused_sweep"],
+                     shapes=sorted([list(s), str(t)] for s, t in inner.sweep_shapes),
+                     times={k: v for k, v in times.items() if isinstance(v, float)},
+                     peak=torch.cuda.max_memory_allocated())
+
+
+def mesh_one(torch, args, mesh, rank: int) -> dict:
+    """The world of one: the SUSY fit through ``FalkonConfig(mesh=...)``."""
+    from repro_torch.core import FalkonConfig, falkon_fit
+    task, X, y, _, _ = make_susy(torch, args.seed, args.n, args.n_test)
+    cfg = susy_config(FalkonConfig, task, mesh=mesh)
+    (est, st), info = mesh_fit(torch, lambda ops, times: falkon_fit(
+        args.seed, X, y, cfg, ops=ops, stage_times=times), mesh, cfg)
+    say(f"rank {rank}: SUSY fit, {info['psums']} all-reduces, {info['b1']} B1 launches")
+    return dict(info, alpha=st.alpha.cpu())
+
+
+def mesh_world(torch, args, mesh, rank: int) -> dict:
+    """A gloo rank: the SUSY fit at full size, the ragged sweep, ``apply``,
+    the int8 wire, the fit variants of ``mesh_variants`` and the all-reduce
+    time."""
+    import torch.distributed as dist
+
+    from repro_torch.core import FalkonConfig, falkon_fit
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.ops import DistributedOps, get_ops
+    task, X, y, Xt, yt = make_susy(torch, args.seed, args.n, args.n_test)
+    cfg = susy_config(FalkonConfig, task, mesh=mesh)
+    out = {}
+    (est, st), info = mesh_fit(torch, lambda ops, times: falkon_fit(
+        args.seed, X, y, cfg, ops=ops, stage_times=times), mesh, cfg)
+    pred = est.predict(Xt)
+    out["susy"] = dict(info, alpha=st.alpha.cpu(), pred=pred.cpu(), err=sign_err(torch, pred, yt))
+    out["centers"] = est.centers.cpu()
+    say(f"rank {rank}: SUSY fit, {info['psums']} all-reduces, {info['b1']} B1 launches, "
+        f"solve {info['times']['solve']:.4f} s")
+
+    C, alpha = est.centers, st.alpha
+    inner = get_ops("cuda", est.kernel)
+    ops = DistributedOps(inner, mesh, ("data",))
+    out["shard"] = (ops.shard_index, ops.num_shards)
+    g = torch.Generator(device=DEVICE).manual_seed(args.seed + 7)
+    u = torch.randn(C.shape[0], generator=g, device=DEVICE)
+    v = torch.randn(X.shape[0], generator=g, device=DEVICE)
+    n = X.shape[0] - 3
+    Xj, vj = X.clone(), v.clone()
+    Xj[n:] = 1e3 * torch.randn(3, X.shape[1], generator=g, device=DEVICE)
+    vj[n:] = 1e6
+    mask = (torch.arange(X.shape[0], device=DEVICE) < n).to(torch.float32)
+    padded = ops.sweep(X[:n], C, u, v[:n])
+    masked = ops.sweep(Xj, C, u, vj, row_mask=mask)
+    out["ragged_bit_equal"] = bool(torch.equal(padded, masked))
+    del Xj, vj
+    # apply: the rank's rows of the reassembled output bit-equal to the
+    # wrapped backend's apply of those rows (the reassembly adds zeros).
+    # B2 picks its slices of the centers from the row count (matmul_slices),
+    # so against an apply of all rows a row may sum its center tiles in
+    # another grouping: that distance is printed beside the slice counts.
+    full = ops.apply(Xt, C, alpha)
+    rows = -(-Xt.shape[0] // ops.num_shards)
+    mine = slice(ops.shard_index * rows, min((ops.shard_index + 1) * rows, Xt.shape[0]))
+    out["apply_bit_equal"] = bool(torch.equal(full[mine], inner.apply(Xt[mine], C, alpha)))
+    out["apply_rel"] = rel(full, inner.apply(Xt, C, alpha))
+    slots = km.matmul_grid_model(1, Xt.shape[1])
+    out["apply_slices"] = (km.matmul_slices(rows, C.shape[0], slots),
+                           km.matmul_slices(Xt.shape[0], C.shape[0], slots))
+    w = ops.sweep(X, C, u)
+    w8 = DistributedOps(inner, mesh, ("data",), compress="int8").sweep(X, C, u)
+    out["int8_rel"] = rel(w8, w)
+
+    data = dict(X=X, y=y, Xt=Xt, yt=yt, centers=C)
+    for tag, fit in mesh_variants(torch, args.seed, data, cfg):
+        res, info = mesh_fit(torch, fit, mesh, cfg)
+        out[tag] = dict(res, **info)
+        say(f"rank {rank}: {tag} fit, {info['psums']} all-reduces, solve "
+            f"{info['times']['solve']:.4f} s, device peak {info['peak'] / 2**30:.3f} GiB")
+        torch.cuda.empty_cache()
+
+    wr = torch.randn(C.shape[0], generator=g, device=DEVICE)
+    for _ in range(5):
+        dist.all_reduce(wr, group=ops.group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_ALLREDUCE_REPS):
+        dist.all_reduce(wr, group=ops.group)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) / MESH_ALLREDUCE_REPS * 1e3
+    return out
+
+
 def msd_bf16_sweep(torch, msd) -> dict:
     """One bf16 sweep at the MillionSongs shape on the policy's B4 route
     (``REPRO_SWEEP_BUDGET_MB`` forces it off B1: t spilled in bf16, w fp32)
@@ -3255,6 +3697,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n-test", type=int, default=500_000, help="rows to predict")
     ap.add_argument("--checks-only", action="store_true",
                     help="build and run the kernel checks only; prints no result line")
+    ap.add_argument("--mesh-worker", nargs=4, help=argparse.SUPPRESS)   # one mesh rank
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3263,6 +3706,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: cannot import the port ({e}); run from the repository root",
               file=sys.stderr)
         return 3
+    if args.mesh_worker:
+        return mesh_worker(torch, args)
     t_start = time.perf_counter()
     card = phase_device(torch)
     build_s = phase_build()
@@ -3286,6 +3731,8 @@ def main(argv=None) -> int:
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the streaming phase")
     bf16_rows += phase_minibatch(torch, args, main_res, path_res, card)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the mini-batch phase")
+    phase_mesh(torch, args, main_res, card)
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the mesh phase")
     msd_res = phase_msd(torch, args)
     bf16_rows.append(msd_bf16_sweep(torch, msd_res))
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the MillionSongs phase")

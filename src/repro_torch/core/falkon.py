@@ -41,9 +41,17 @@ stochastic preconditioned chunk sweeps with delayed projections
 ``FalkonEstimator.partial_fit`` refreshes a fitted model from a tail of new
 rows the same way, warm-started from its alpha, keeping its centers.
 
+``FalkonConfig(mesh=..., data_axes=...)`` (a ``DeviceMesh``,
+``repro_torch.launch.mesh.make_mesh``) fits data-parallel: the backend is
+wrapped in ``repro_torch.ops.DistributedOps``, which sweeps this rank's
+rows and all-reduces the (M, p) partials once a sweep. Every fit variant
+inherits it through ``make_ops`` / ``_resolve_ops``, with no mesh code of
+its own. Every rank runs the same fit on the same global X with the same
+seed (one process a rank: ``torchrun`` or ``mp.spawn``).
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP.md item: storage types other than float32, bfloat16 and float16
-(A7) and a mesh (A14).
+(A7).
 A large M routes the factor to the blocked out-of-core Cholesky and the
 sweep off the fused route, as planned by ``plan_factor`` and
 ``plan_sweep``.
@@ -55,7 +63,7 @@ import dataclasses
 import math
 import time
 import warnings
-from typing import Callable, NamedTuple
+from typing import TYPE_CHECKING, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -63,9 +71,11 @@ import torch
 from repro_torch.data.streaming import (ChunkSource, ShuffledChunkSource, StreamingLoader,
                                        streaming_apply, streaming_sweep,
                                        streaming_uniform_centers)
+from repro_torch.distributed.mesh import mesh_shape
 from repro_torch.kernels.blocked_cholesky import FactorStats
-from repro_torch.ops import (CachePlanWarning, KernelCache, KernelOps, available_ops,
-                             data_shards, get_ops, plan_cache, plan_factor, resolve_precision)
+from repro_torch.ops import (CachePlanWarning, DistributedOps, KernelCache, KernelOps,
+                             available_ops, data_shards, get_ops, plan_cache, plan_factor,
+                             resolve_precision)
 from repro_torch.ops.base import require_supported_policy
 
 from .cg import CGResult, conjugate_gradient, conjugate_gradient_host
@@ -74,6 +84,9 @@ from .minibatch import MinibatchConfig, MinibatchResult, minibatch_solve, miniba
 from .nystrom import NystromCenters, select_centers
 from .preconditioner import (Preconditioner, PreconditionerPath, make_preconditioner,
                              make_preconditioner_path)
+
+if TYPE_CHECKING:
+    from torch.distributed.device_mesh import DeviceMesh
 
 Tensor = torch.Tensor
 
@@ -110,7 +123,9 @@ class FalkonConfig:
     dtype: str = "float32"
     estimate_cond: bool = True             # power-iteration cond(W) diagnostic
     knm_cache: str = "off"                 # "off" | "auto" | "device" | "host"
-    mesh: object | None = None             # data-parallel mesh (A14)
+    mesh: DeviceMesh | None = None         # data-parallel mesh (None = one device);
+                                           # make_ops wraps the backend in DistributedOps
+    data_axes: tuple[str, ...] = ("data",)  # mesh axes the rows shard over
     device: str = "cuda"
 
     def __post_init__(self):
@@ -127,8 +142,10 @@ class FalkonConfig:
             raise ValueError(f"unknown center_selection {self.center_selection!r}; "
                              f"supported: {CENTER_SELECTIONS}")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "multi-device fits are not ported yet: ROADMAP.md item A14")
+            shape = mesh_shape(self.mesh)
+            missing = [a for a in self.data_axes if a not in shape]
+            if missing:
+                raise ValueError(f"data_axes {missing} not in mesh axes {tuple(shape)}")
         if self.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r}; supported: {DTYPES}")
 
@@ -136,9 +153,13 @@ class FalkonConfig:
         return make_kernel(self.kernel, **dict(self.kernel_params))
 
     def make_ops(self, kernel: KernelFn | None = None) -> KernelOps:
-        return get_ops(self.ops_impl,
-                       kernel if kernel is not None else self.make_kernel(),
-                       block_size=self.block_size, precision=self.precision)
+        """The backend every stage of a fit runs on, wrapped in
+        :class:`DistributedOps` when a ``mesh`` is configured."""
+        ops = get_ops(self.ops_impl, kernel if kernel is not None else self.make_kernel(),
+                      block_size=self.block_size, precision=self.precision)
+        if self.mesh is not None:
+            ops = DistributedOps(ops, self.mesh, self.data_axes)
+        return ops
 
 
 class FalkonState(NamedTuple):
@@ -502,6 +523,37 @@ def _stage_wrap(centers: Tensor, alpha: Tensor, kernel: KernelFn, config: Falkon
                            precond=precond, lam=lam)
 
 
+def _resolve_ops(config: FalkonConfig, kernel: KernelFn, ops: KernelOps | None) -> KernelOps:
+    """The one place every fit variant resolves its backend.
+
+    ``ops=None`` builds from the config (mesh-wrapped when configured). An
+    explicit ``ops`` (e.g. a ``CountingOps``) is wrapped in
+    :class:`DistributedOps` when the config names a mesh and the caller has
+    not distributed it already, so counting facades compose with sharding
+    on either side. "Already distributed" walks the whole facade chain
+    (``.inner`` / ``.ops``): ``CountingOps(DistributedOps(...))`` must not
+    get a second wrapper (two all-reduces a sweep).
+    """
+    if ops is None:
+        return config.make_ops(kernel)
+    if config.mesh is not None and not _wraps_distributed(ops):
+        return DistributedOps(ops, config.mesh, config.data_axes)
+    return ops
+
+
+def _wraps_distributed(ops: KernelOps) -> bool:
+    """True if ``ops`` is, or anywhere down its facade chain wraps, a
+    :class:`DistributedOps`."""
+    seen: set[int] = set()
+    o: object | None = ops
+    while o is not None and id(o) not in seen:
+        if isinstance(o, DistributedOps):
+            return True
+        seen.add(id(o))
+        o = getattr(o, "inner", None) or getattr(o, "ops", None)
+    return False
+
+
 @contextlib.contextmanager
 def _timed(times: dict | None, name: str, device: torch.device):
     """Record the stage's wall time, synchronised, when ``times`` is given."""
@@ -532,8 +584,7 @@ def _fit_front(generator, X, y, config: FalkonConfig, ops: KernelOps | None, lam
     if isinstance(generator, int):
         generator = torch.Generator(device=device).manual_seed(generator)
     kernel = config.make_kernel()
-    if ops is None:
-        ops = config.make_ops(kernel)
+    ops = _resolve_ops(config, kernel, ops)
     dt = getattr(torch, config.dtype)
     X = torch.as_tensor(X, dtype=dt, device=device)
     y = torch.as_tensor(y, dtype=dt, device=device)
@@ -561,6 +612,7 @@ def _fit_front(generator, X, y, config: FalkonConfig, ops: KernelOps | None, lam
 
 
 def falkon_fit(generator: torch.Generator | int, X, y, config: FalkonConfig, *,
+               mesh: DeviceMesh | None = None, data_axes: tuple[str, ...] = ("data",),
                ops: KernelOps | None = None,
                stage_times: dict | None = None) -> tuple[FalkonEstimator, FalkonState]:
     """Select centers, build the preconditioner, run the solve.
@@ -575,8 +627,13 @@ def falkon_fit(generator: torch.Generator | int, X, y, config: FalkonConfig, *,
     and the factor plan's ``factor_path`` and ``factor_block`` with the
     blocked path's ``factor_stats`` (and "cache" with a K_nM cache). With
     ``config.knm_cache`` other than "off" the fit builds one ``KernelCache``
-    for its solve and drops it with the fit's other temporaries.
+    for its solve and drops it with the fit's other temporaries. With a mesh
+    (``config.mesh``, or the ``mesh=`` / ``data_axes=`` keywords, which
+    override the config) every sweep runs on this rank's rows and one
+    all-reduce a sweep merges them (``repro_torch.ops.DistributedOps``).
     """
+    if mesh is not None:
+        config = dataclasses.replace(config, mesh=mesh, data_axes=tuple(data_axes))
     device, kernel, ops, X, y, sel, precond, cache = _fit_front(
         generator, X, y, config, ops, config.lam, stage_times)
     with _timed(stage_times, "solve", device):
@@ -732,8 +789,7 @@ def _streaming_front(generator, source: ChunkSource, config: FalkonConfig, lam, 
         raise ValueError("a streamed fit draws center_selection='uniform' centers only "
                          f"(got {config.center_selection!r}); pass centers= to use others")
     kernel = config.make_kernel()
-    if ops is None:
-        ops = config.make_ops(kernel)
+    ops = _resolve_ops(config, kernel, ops)
     dt = getattr(torch, config.dtype)
     with _timed(stage_times, "centers", device):
         if centers is None:

