@@ -188,6 +188,39 @@ result line:
                float64 fits; then one bf16 sweep on the policy's B4 route
                (t spilled in bf16) and on B1's bf16 build, against a
                float64 twin on the same bf16 inputs, timed.
+   lm       — the LM serving path (A15.1) at gemma3-1b's full width (26
+               layers, d_model 1152, 4 query heads padded to 16 over 1 KV
+               head, d_head 256, d_ff 6912, vocab 262,144, window 512;
+               random weights on the card from --seed): (a) in fp32, B = 2
+               rows of 1,040 tokens: ``forward`` over all of them,
+               ``prefill`` of the first 1,024 (past the window) into a
+               cache of 1,040 and 16 ``decode_step``s, the prefill logits
+               against the forward's at position 1,023 (2e-3) and each step
+               against its position (5e-3), the reference test's bounds;
+               (b) in fp32, B = 1, S = 4,096 > dense_attn_max_seq = 2,048:
+               the chunked attention (2 query blocks x 4 KV chunks of 1,024,
+               whole chunks masked in every sliding layer) against the same
+               forward under dense_attn_max_seq = 4,096 (LM_CHUNK_TOL);
+               (c) bf16, the config's own dtype: ``serve_lm`` (batch 4,
+               prompt 1,024, 32 generated), its prefill ms, decode ms per
+               token and device peak; (d) the FALKON head on that bf16
+               model's frozen features: 16 batches of the synthetic token
+               stream (vocab 512, 8 x 512 tokens, seed 7) through
+               ``_backbone``, 65,536 rows of 1,152 features in fp32, target
+               ``tokens % 8`` one-hot, 52,428 rows to fit and 13,108 to
+               score; ``falkon_fit`` (gaussian, sigma the median pairwise
+               distance of 4,096 training rows, lam = 1e-6, t = 15,
+               M = 4,096, "cuda") and ``predict``: accuracy above the
+               majority class by 10 standard errors (the example's 0.2
+               printed beside it: random weights miss it), and
+               the launch counts of serve + features + fit + predict (the
+               counts zeroed before it): B3 1, B1 (1 + t) x 2 + 26 = 58,
+               B2 2; the same fit on the "torch" backend (plain versions on
+               the card, the same centers) within LM_HEAD_PRED_TOL; B1 at
+               the head's sweep shape (52,428 x 4,096, d = 1,152 > 128:
+               X staged again per tile, p = 8) against float32 and float64
+               twins, B2 at its predict shape and B3 at its K_MM, timed for
+               the kernels line.
 7. times    — the full-size sweeps (SUSY: B1; MillionSongs: B1 and B4) and
                the predict-shape kernel matmul against float32 and float64
                twins; the MillionSongs fit's blocked T and A against
@@ -216,7 +249,9 @@ result line:
                launches from the default mini-batch fit; B2 at the server's
                rungs of 8 and 256 rows, its launches the eager and captured
                ones of the rung's warmup: a served dispatch replays the
-               rung's graph and launches nothing from Python).
+               rung's graph and launches nothing from Python; B1, B2 and
+               B3 at the LM head's shapes, their launches from the head's
+               fit and predict).
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -444,6 +479,33 @@ MESH_PATH_PRED_TOL = (1.0, 0.8, 0.56, 0.32, 0.17, 0.085, 0.036, 0.013)
 MESH_PATH_ERR = (0.008, 0.006, 0.004, 0.002, 0.002, 0.002, 0.002, 0.002)
 MESH_INT8 = (0.0, 2e-2)
 MESH_ALLREDUCE_REPS = 50
+LM_ARCH = "gemma3-1b"
+LM_TOKENS = (2, 1040, 1024)       # (a): rows, tokens forwarded, tokens prefilled
+LM_DECODE_TOL = ((2e-3, 2e-3), (5e-3, 5e-3))   # (rtol, atol): prefill, decode steps
+LM_CHUNK_S = 4096
+#: (b): chunked vs dense attention over 26 fp32 layers, |diff| <= tol (1 + |dense|)
+#: on the logits: both sum in fp32 in other orders (the dense softmax over
+#: 4,096 keys, the chunked one in 4 rescaled pieces)
+LM_CHUNK_TOL = 1e-3
+LM_SERVE = (4, 1024, 32)          # (c): batch, prompt, generated tokens
+LM_STREAM = dict(vocab=512, seq_len=512, batch=8)
+LM_BATCHES = 16
+LM_HEAD = dict(num_centers=4096, lam=1e-6, iterations=15)
+LM_SIGMA_ROWS = 4096
+#: (d): the example's accuracy bar (chance 0.125), printed beside the
+#: reading. It was set for features of a trained LM; those of random weights
+#: at gemma3-1b's full depth (26 bf16 layers, the embedding at scale 0.02
+#: under O(1) layer outputs) carry less of the current token: 0.1772 on an
+#: H100 80GB HBM3 at 700 W (PERF.md §6). The check holds the head to having
+#: learned from them: above the test rows' majority-class rate by LM_ACC_SE
+#: binomial standard errors.
+LM_ACC_EXAMPLE = 0.2
+LM_ACC_SE = 10
+#: (d): the "torch" backend's predictions against the "cuda" backend's,
+#: normwise, same centers: fp32 sums in other orders through a lam = 1e-6
+#: solve (a 64-wide CPU head moves 4e-4 at M = 128 and 1.2e-3 at M = 256)
+LM_HEAD_PRED_TOL = 5e-2
+LM_HEAD_AGREE = 0.98              # share of test rows given the same class
 SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
 SOURCE_BLOCKED = "src/repro_torch/kernels/csrc/blocked_cholesky.cu"
 DEVICE = "cuda"
@@ -478,6 +540,8 @@ SOURCES.update(fused_sweep_f16c="src/repro_torch/kernels/csrc/kernel_matvec_f16c
 #: B1 at the mini-batch chunk (2048 rows), B2 at the server's rungs of 8 and
 #: 256 rows
 SOURCES.update(fused_sweep_mb=SOURCE, kernel_matmul_rung8=SOURCE, kernel_matmul_rung256=SOURCE)
+#: B1, B2 and B3 at the LM head's shapes (d = 1152: B1's d > 128 route)
+SOURCES.update(fused_sweep_head=SOURCE, kernel_matmul_head=SOURCE, pairwise_kernel_head=SOURCE)
 
 
 class SmokeFailure(RuntimeError):
@@ -3252,6 +3316,229 @@ def small_blocked_fit(torch, seed: int, n: int, d: int, M: int) -> None:
     check(rp <= BLOCKED_FIT_TOL and rb <= 2 * ri, f"forced-blocked fit M={M} disagrees")
 
 
+def lm_close(torch, got, ref, rtol: float, atol: float) -> tuple[float, float]:
+    """(max |got - ref|, max |got - ref| / (atol + rtol |ref|)): the second
+    is <= 1 where ``allclose`` holds."""
+    diff = (got.double() - ref.double()).abs()
+    return float(diff.max()), float((diff / (atol + rtol * ref.double().abs())).max())
+
+
+def phase_lm(torch, args, card: str) -> list[dict]:
+    """The LM serving path at gemma3-1b's full width (see the module doc,
+    phase ``lm``). Returns the kernels line's rows of B1, B2 and B3 at the
+    head's shapes."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import FalkonConfig, falkon_fit
+    from repro_torch.data import TokenStreamConfig, token_stream
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import decode_step, forward, model_params, prefill
+    from repro_torch.models.model import _backbone
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    say(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads} "
+        f"(padded {cfg.padded_heads}) over {cfg.n_kv_heads} KV, d_head {cfg.d_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, window {cfg.sliding_window}")
+
+    # (a) decode against the teacher-forced forward, fp32
+    B, S, k = LM_TOKENS
+    g = torch.Generator(device=DEVICE).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    model = model_params(g, cfg32)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    say(f"[lm] fp32 model: {n_params} parameters ({n_params * 4 / 1e9:.3f} GB) made on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    check(abs(n_params - 1.486e9) < 1e6, f"gemma3-1b stores {n_params} parameters, not 1.486e9")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g, device=DEVICE, dtype=torch.int32)
+    with torch.no_grad():
+        full = forward(model, cfg32, {"tokens": tokens})
+    logits, cache = prefill(model, cfg32, {"tokens": tokens[:, :k]}, S_max=S)
+    (rt, at), (rt2, at2) = LM_DECODE_TOL
+    err, ratio = lm_close(torch, logits, full[:, k - 1], rt, at)
+    worst = (err, ratio)
+    for t in range(k, S):
+        logits, cache = decode_step(model, cfg32, cache, {"token": tokens[:, t]})
+        e, r = lm_close(torch, logits, full[:, t], rt2, at2)
+        worst = max(worst, (e, r), key=lambda x: x[1])
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(full).all())
+    say(f"[lm] (a) fp32 B={B}: forward over {S} tokens, prefill {k} into a cache of {S}, "
+        f"{S - k} decode steps: prefill vs forward max abs err {err:.3e} (ratio {ratio:.4f} "
+        f"of rtol=atol={rt:g}); decode steps vs forward worst max abs err {worst[0]:.3e} "
+        f"(ratio {worst[1]:.4f} of rtol=atol={rt2:g}); cache pos {int(cache['pos'])}; "
+        f"logits finite {finite}, max |logit| {float(full.abs().max()):.4f}")
+    check(finite and ratio <= 1.0 and worst[1] <= 1.0 and int(cache["pos"]) == S,
+          "decode disagrees with the teacher-forced forward")
+    del full, cache, logits
+
+    # (b) chunked against dense attention, fp32
+    toks = torch.randint(0, cfg.vocab, (1, LM_CHUNK_S), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    check(LM_CHUNK_S > cfg32.dense_attn_max_seq, "the chunked case must exceed the dense limit")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunked = forward(model, cfg32, {"tokens": toks})
+        torch.cuda.synchronize()
+        t_chunked = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense = forward(model, dataclasses.replace(cfg32, dense_attn_max_seq=LM_CHUNK_S),
+                        {"tokens": toks})
+        torch.cuda.synchronize()
+        t_dense = time.perf_counter() - t0
+    err, ratio = lm_close(torch, chunked, dense, LM_CHUNK_TOL, LM_CHUNK_TOL)
+    nq = LM_CHUNK_S // 2048 if LM_CHUNK_S > 2048 and LM_CHUNK_S % 2048 == 0 else 1
+    say(f"[lm] (b) fp32 B=1 S={LM_CHUNK_S}: chunked ({nq} query block(s) x "
+        f"{LM_CHUNK_S // cfg.attn_chunk} KV chunks of {cfg.attn_chunk}) vs dense attention: "
+        f"max abs diff {err:.3e} (ratio {ratio:.4f} of {LM_CHUNK_TOL:g}); forward "
+        f"{t_chunked:.3f} s chunked, {t_dense:.3f} s dense")
+    check(ratio <= 1.0 and bool(torch.isfinite(chunked).all()),
+          "chunked attention disagrees with dense")
+    del chunked, dense, model
+    torch.cuda.empty_cache()
+
+    # (c) serving in bf16, then (d) the head on its features: the main path
+    km.reset_launch_counts()
+    held = torch.cuda.memory_allocated()          # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    nb, npr, ngen = LM_SERVE
+    served = serve_lm(types.SimpleNamespace(arch=LM_ARCH, reduced=False, batch=nb,
+                                            prompt_len=npr, gen=ngen, device=DEVICE,
+                                            seed=args.seed))
+    serve_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    model, bcfg = served["model"], served["cfg"]
+    check(bcfg.dtype == "bfloat16" and model.embed.dtype == torch.bfloat16,
+          "serve_lm did not run the config's bf16")
+    check(tuple(served["tokens"].shape) == (nb, ngen - 1)
+          and int(served["tokens"].max()) < cfg.padded_vocab, "serve_lm's tokens are malformed")
+    say(f"[lm] (c) {card}: bf16 serve_lm batch {nb}, prompt {npr}, {ngen} generated: prefill "
+        f"{served['prefill_s'] * 1e3:.1f} ms, decode {served['decode_s'] * 1e3:.2f} ms/token/batch "
+        f"(eager), device peak {serve_peak:.2f} GiB above the {held / 2**30:.2f} GiB held "
+        f"before it")
+
+    stream = token_stream(TokenStreamConfig(**LM_STREAM), seed=7, device=DEVICE)
+    feats, labels = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(LM_BATCHES):
+            b = next(stream)
+            feats.append(_backbone(model, bcfg, {"tokens": b["tokens"]})
+                         .reshape(-1, bcfg.d_model).float())
+            labels.append(b["tokens"].reshape(-1).long() % 8)
+    X, ylab = torch.cat(feats), torch.cat(labels)
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    del feats, model, served
+    torch.cuda.empty_cache()
+    n, d = X.shape
+    ntr = int(0.8 * n)
+    Xtr, Xte, Y = X[:ntr], X[ntr:], torch.nn.functional.one_hot(ylab, 8).float()
+    D = torch.cdist(Xtr[:LM_SIGMA_ROWS].double(), Xtr[:LM_SIGMA_ROWS].double())
+    iu = torch.triu_indices(LM_SIGMA_ROWS, LM_SIGMA_ROWS, 1, device=DEVICE)
+    sigma = float(D[iu[0], iu[1]].median())
+    del D, iu
+    say(f"[lm] (d) features: {LM_BATCHES} batches of {LM_STREAM['batch']} x "
+        f"{LM_STREAM['seq_len']} tokens through _backbone in {t_feat:.3f} s: X {tuple(X.shape)} "
+        f"fp32, finite {bool(torch.isfinite(X).all())}; sigma = median pairwise distance of "
+        f"{LM_SIGMA_ROWS} training rows = {sigma:.4f} (sqrt(2 d) = {np.sqrt(2 * d):.2f})")
+    check(n == LM_BATCHES * LM_STREAM["batch"] * LM_STREAM["seq_len"] and d == cfg.d_model
+          and bool(torch.isfinite(X).all()), "the head's features are malformed")
+    hcfg = dict(kernel="gaussian", kernel_params=(("sigma", sigma),), device=DEVICE, **LM_HEAD)
+    st: dict = {}
+    t0 = time.perf_counter()
+    est, state = falkon_fit(args.seed, Xtr, Y[:ntr], FalkonConfig(ops_impl="cuda", **hcfg),
+                            stage_times=st)
+    pred = est.predict(Xte)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = km.launch_counts()
+    acc = float((pred.argmax(-1) == ylab[ntr:]).float().mean())
+    major = float(torch.bincount(ylab[ntr:], minlength=8).max()) / (n - ntr)
+    acc_bar = major + LM_ACC_SE * float(np.sqrt(major * (1 - major) / (n - ntr)))
+    t_it, p = LM_HEAD["iterations"], Y.shape[1]
+    groups = -(-p // km.MAX_P)
+    want = {"pairwise_kernel": 1, "fused_sweep": (1 + t_it) * groups + 26,
+            "kernel_matmul": groups}
+    say(f"[lm] (d) {card}: head fit n={ntr} M={LM_HEAD['num_centers']} d={d} p={p} "
+        f"lam={LM_HEAD['lam']:g} t={t_it}: fit + predict {t_fit:.3f} s (stages "
+        + ", ".join(f"{k_} {v:.3f} s" for k_, v in st.items() if isinstance(v, float))
+        + f"); accuracy {acc:.4f} on {n - ntr} rows (bar {acc_bar:.4f}: the majority class "
+        f"{major:.4f} + {LM_ACC_SE} standard errors; the example's bar {LM_ACC_EXAMPLE} "
+        f"{'met' if acc > LM_ACC_EXAMPLE else 'not met'}; chance 0.125); "
+        f"cond(W) {float(state.cond_estimate):.2f}; launches on the main path (serve, "
+        f"features, fit, predict) {counts} (want {want})")
+    check(acc > acc_bar, f"the LM head's accuracy {acc:.4f} is not above {acc_bar:.4f}")
+    for name, v in want.items():
+        check(counts[name] == v, f"{name}: {counts[name]} launches on the head's path, want {v}")
+    check(counts["sharded_sweep"] == 0, "the head's sweeps left B1")
+
+    t0 = time.perf_counter()
+    est_t, _ = falkon_fit(args.seed, Xtr, Y[:ntr], FalkonConfig(ops_impl="torch", **hcfg))
+    pred_t = est_t.predict(Xte)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    same = torch.equal(est_t.centers, est.centers)
+    prel = float(torch.linalg.norm((pred_t - pred).double()) / torch.linalg.norm(pred.double()))
+    agree = float((pred_t.argmax(-1) == pred.argmax(-1)).float().mean())
+    acc_t = float((pred_t.argmax(-1) == ylab[ntr:]).float().mean())
+    say(f"[lm] (d) the same fit on the \"torch\" backend (plain, on the card, {t_plain:.3f} s): "
+        f"same centers {same}; predictions vs \"cuda\" normwise {prel:.3e} (bound "
+        f"{LM_HEAD_PRED_TOL:g}), same class on {agree:.4f} of rows (bound {LM_HEAD_AGREE}), "
+        f"accuracy {acc_t:.4f}")
+    check(same and prel <= LM_HEAD_PRED_TOL and agree >= LM_HEAD_AGREE,
+          "the head's cuda fit disagrees with its plain fit")
+
+    # the kernels line's rows: B1, B2, B3 at the head's shapes
+    rows = []
+    C, spec, M = est.centers, est.kernel.spec, est.centers.shape[0]
+    U = torch.randn(M, p, generator=torch.Generator(device=DEVICE).manual_seed(31),
+                    device=DEVICE)
+    sweep = lambda: km.fused_sweep(Xtr, C, U, spec=spec)
+    ws, ref = sweep_witness(torch, km, spec, Xtr, C, U,
+                            f"the LM head n={ntr} M={M} d={d} p={p}", {"B1": sweep})
+    abs_err, ratio = close_err(ws["B1"], ref)
+    again = torch.equal(ws["B1"], sweep())
+    check(ratio <= 1.0 and again, "B1 at the head's shape is off its twin or not deterministic")
+    ms = time_cuda(torch, sweep, 5)
+    plain = time_cuda(torch, lambda: km.fused_sweep_plain(Xtr, C, U, None, spec=spec), 3)
+    b, by = bound(ntr * M * (2 * d + 10 + 4 * p), 4 * (ntr * d + M * d + 2 * M * p))
+    say(f"[lm] {card}: B1 at the head n={ntr} M={M} d={d} p={p} ({groups} launches): kernel "
+        f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b:.4f} ms ({by}); vs twin max abs err "
+        f"{abs_err:.3e} (ratio {ratio:.4f}); two runs bit-equal {again}")
+    rows.append(dict(name="fused_sweep_head", base="fused_sweep", ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, max_abs_err=abs_err,
+                     launches=counts["fused_sweep"], shape=f"n={ntr} M={M} d={d} p={p}"))
+    alpha, m = est.alpha, Xte.shape[0]
+    mm = lambda: km.kernel_matmul(Xte, C, alpha, spec=spec)
+    out = mm().double()
+    S_ = float(km.kernel_matmul_plain(Xte, C, alpha.abs(), spec=spec).max())
+    abs_err = float((out - km.kernel_matmul_plain(Xte, C, alpha, spec=spec).double()).abs().max())
+    check(abs_err <= PRED_RTOL * S_ and torch.equal(out, mm().double()),
+          f"B2 at the head's predict shape off its twin ({abs_err:.3e}) or not deterministic")
+    ms = time_cuda(torch, mm, 10)
+    plain = time_cuda(torch, lambda: km.kernel_matmul_plain(Xte, C, alpha, spec=spec), 3)
+    b, by = bound(m * M * (2 * d + 10 + 2 * p), 4 * (m * d + M * d + M * p + m * p))
+    say(f"[lm] {card}: B2 at the head's predict m={m} n={M} d={d} p={p}: kernel {ms:.4f} ms, "
+        f"twin {plain:.4f} ms, bound {b:.4f} ms ({by}); max abs err {abs_err:.3e} (limit "
+        f"{PRED_RTOL:g} x {S_:.4e})")
+    rows.append(dict(name="kernel_matmul_head", base="kernel_matmul", ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, max_abs_err=abs_err,
+                     launches=counts["kernel_matmul"], shape=f"m={m} n={M} d={d} p={p}"))
+    row = pairwise_times(torch, km, C, C, spec, "the LM head's K_MM", plain=True)
+    rows.append(dict(row, name="pairwise_kernel_head", base="pairwise_kernel",
+                     launches=counts["pairwise_kernel"]))
+    del X, Xtr, Xte, est, est_t, pred, pred_t
+    torch.cuda.empty_cache()
+    say(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def time_cuda(torch, fn, reps: int, warm: bool = True) -> float:
     """Median milliseconds of ``fn`` over ``reps`` launches (CUDA events),
     after one warm-up call (``warm``; a twin that takes seconds goes
@@ -3736,6 +4023,8 @@ def main(argv=None) -> int:
     msd_res = phase_msd(torch, args)
     bf16_rows.append(msd_bf16_sweep(torch, msd_res))
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the MillionSongs phase")
+    bf16_rows += phase_lm(torch, args, card)
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the LM phase")
     kernels = phase_times(torch, main_res, msd_res, bf16_rows, path_res)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, {build_s:.1f} s of it the build")
     say(f"card: {card}")

@@ -9,7 +9,12 @@ names follow ``repro``'s, so each module's counterpart is easy to find:
   reference) and ``"cuda"`` (the hand-written kernels);
 * ``repro_torch.kernels`` — the CUDA kernels' wrappers, their plain twins,
   the dense oracles and the build;
-* ``repro_torch.data``    — synthetic datasets;
+* ``repro_torch.data``    — chunk sources and loaders, synthetic datasets
+  and the LM token stream;
+* ``repro_torch.configs``, ``repro_torch.models`` — the ten LM
+  architectures' configs and models (forward, loss, prefill, decode);
+* ``repro_torch.serve``, ``repro_torch.launch`` — the coalescing predict
+  server, the serving launcher (FALKON and LM modes) and the mesh helper;
 * ``repro_torch.convert`` — state carried across from ``repro`` as numpy.
 
 Importing the package compiles nothing: the kernels build at first launch.

@@ -4,6 +4,8 @@ The JAX package and this port cannot share random draws, so parity is held
 by handing one package's state to the other. These functions take plain
 numpy arrays keyed by the JAX package's field names — the caller converts
 (``np.asarray``) on its side — and build the port's objects from them.
+An LM's parameters and decode caches come as the reference's trees, with
+its stacked periods (``model_params_from_numpy``, ``cache_from_numpy``).
 """
 from __future__ import annotations
 
@@ -16,12 +18,17 @@ from repro_torch.core.falkon import (FalkonEstimator, FalkonPathResult, FalkonPa
                                      resolve_device)
 from repro_torch.core.kernels import KernelSpec, kernel_from_spec
 from repro_torch.core.minibatch import MinibatchState
+from repro_torch.models.model import Model, split_periods
 from repro_torch.core.preconditioner import Preconditioner, PreconditionerPath
 
 
 def _tensor(a, device, dtype=None):
-    return None if a is None else torch.as_tensor(np.array(a), dtype=dtype,
-                                                  device=device)
+    if a is None:
+        return None
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16 leaves: widen exactly
+        return torch.from_numpy(a.astype(np.float32)).to(device, dtype or torch.bfloat16)
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def preconditioner_from_numpy(d: Mapping, *, device: str = "cuda") -> Preconditioner:
@@ -117,3 +124,66 @@ def minibatch_state_from_numpy(d: Mapping, *, device: str = "cuda") -> Minibatch
     ints = ("step", "projections")
     return MinibatchState(**{f: _tensor(d[f], dev, torch.int32 if f in ints else None)
                              for f in MinibatchState._fields})
+
+
+# ---------------------------------------------------------------------------
+# LM parameters and decode caches
+# ---------------------------------------------------------------------------
+def _np_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _np_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def layer_trees(tree: Mapping, cfg) -> list:
+    """The reference's per-layer trees in pattern order, from a tree with
+    stacked ``period`` slots and a ``tail``: period slot ``i`` at repeat
+    ``r`` is layer ``r * len(period) + i``."""
+    period, n_per, tail = split_periods(cfg.layer_pattern)
+    if len(tree["period"]) != len(period) or len(tree["tail"]) != len(tail):
+        raise ValueError(f"tree has {len(tree['period'])} period slots and "
+                         f"{len(tree['tail'])} tail layers; {cfg.name} has "
+                         f"{len(period)} and {len(tail)}")
+    out = [_np_map(lambda a, r=r: np.asarray(a)[r], tree["period"][i])
+           for r in range(n_per) for i in range(len(period))]
+    return out + list(tree["tail"])
+
+
+def model_params_from_numpy(tree: Mapping, cfg, *, device: str = "cuda") -> Model:
+    """A port ``Model`` at ``cfg.dtype`` from the reference's parameter tree
+    (numpy leaves, stacked periods): every parameter under its reference
+    name, shapes checked, every leaf used. On ``device`` (the card unless
+    the caller asks for the CPU; without a card the default raises)."""
+    dev = resolve_device(device)
+    model = Model(cfg, device=dev)
+    flat = {k: v for k, v in tree.items() if k not in ("period", "tail")}
+    flat["layers"] = layer_trees(tree, cfg)
+    used = 0
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            node = flat
+            for part in name.split("."):
+                node = node[int(part)] if isinstance(node, list) else node[part]
+            value = np.asarray(node)
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(f"{name}: reference shape {value.shape}, port "
+                                 f"{tuple(param.shape)}")
+            param.copy_(_tensor(value, dev, param.dtype))
+            used += 1
+    n_leaves = [0]
+    _np_map(lambda a: n_leaves.__setitem__(0, n_leaves[0] + 1), flat)
+    if used != n_leaves[0]:
+        raise ValueError(f"{n_leaves[0] - used} reference leaves have no port parameter")
+    return model
+
+
+def cache_from_numpy(tree: Mapping, cfg, *, device: str = "cuda") -> dict:
+    """A port decode cache (``{"pos", "layers"}``) from the reference's
+    (``{"pos", "period", "tail"}``, numpy leaves, stacked periods); each
+    leaf keeps its dtype (an SSM state written by a prefill is fp32)."""
+    dev = resolve_device(device)
+    layers = _np_map(lambda a: _tensor(a, dev), layer_trees(tree, cfg))
+    return {"pos": _tensor(tree["pos"], dev, torch.int32),
+            "layers": layers}

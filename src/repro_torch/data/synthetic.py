@@ -1,4 +1,5 @@
-"""Synthetic kernel-regression / classification datasets.
+"""Synthetic kernel-regression / classification datasets and the LM token
+stream.
 
 Counterpart of the kernel-task part of ``repro/data/synthetic.py``: the same
 tasks and the same recipe — X ~ N(0, I_d), and a ground truth that is a
@@ -11,7 +12,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Iterator
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -93,3 +96,40 @@ def make_kernel_dataset(generator: torch.Generator, task: KernelTask,
     logits = phi @ W2 / task.noise
     y = torch.multinomial(torch.softmax(logits, dim=1), 1, generator=g)[:, 0]
     return X, y
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TokenStreamConfig:
+    vocab: int = 512
+    seq_len: int = 128
+    batch: int = 8
+    order: int = 2        # markov order of the synthetic language
+
+
+def token_stream(cfg: TokenStreamConfig, seed: int = 0, *,
+                 device: str | torch.device = "cpu") -> Iterator[dict]:
+    """Deterministic, restartable synthetic LM stream (a Markov chain): the
+    reference's numpy generator, so tokens and labels are bit-equal to
+    ``repro.data.token_stream``'s for the same seed. Yields int32
+    ``tokens`` and ``labels`` (batch, seq_len) on ``device``, and ``step``."""
+    rng = np.random.default_rng(seed)
+    trans = rng.dirichlet(np.ones(cfg.vocab) * 0.05, size=cfg.vocab).astype(np.float32)
+    step = 0
+    while True:
+        g = np.random.default_rng(seed * 1_000_003 + step)
+        toks = np.empty((cfg.batch, cfg.seq_len + 1), np.int32)
+        toks[:, 0] = g.integers(0, cfg.vocab, cfg.batch)
+        for t in range(1, cfg.seq_len + 1):
+            p = trans[toks[:, t - 1]]
+            c = p.cumsum(axis=1)
+            u = g.random((cfg.batch, 1), np.float32)
+            toks[:, t] = (u < c).argmax(axis=1)
+        yield {
+            "tokens": torch.from_numpy(toks[:, :-1].copy()).to(device),
+            "labels": torch.from_numpy(toks[:, 1:].copy()).to(device),
+            "step": step,
+        }
+        step += 1

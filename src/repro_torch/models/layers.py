@@ -1,0 +1,458 @@
+"""Layers for the 10 assigned architectures.
+
+Counterpart of ``repro/models/layers.py``, in plain torch ops. Each layer
+kind is a module (``MLP``, ``MoE``, ``Attention``, ``MLA``) whose
+parameters carry the reference's leaf names (``wq``, ``w_gate``, ...),
+built from ``<layer>_pd(cfg)``; its computation is the reference's
+``<layer>_apply`` with the module in place of the parameter dict. The
+config is passed at each call, as in the reference, so one set of weights
+runs under a changed config (e.g. another ``dense_attn_max_seq``).
+
+The numerics follow the reference: scores and softmax in fp32, masks at
+-1e30 (not -inf), softmax weights cast to the activation dtype before the
+value product, ``rms_norm`` in fp32 cast back before the scale, half-split
+RoPE with fp32 angles, and ``gelu`` as the tanh approximation.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from .params import PD, ParamModule
+
+Tensor = torch.Tensor
+
+NEG = -1e30                       # the reference's mask value
+INT32_MAX = 2**31 - 1             # padded key positions
+
+
+def _inv_sqrt(n: int) -> float:
+    """1/sqrt(n) rounded as the reference's fp32 ``1.0 / jnp.sqrt(n)``."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(n)))
+
+
+def _sqrt(n: int) -> float:
+    return float(np.sqrt(np.float32(n)))
+
+
+# ---------------------------------------------------------------------------
+# Norms & activations
+# ---------------------------------------------------------------------------
+def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+def _act(name: str, gate: Tensor | None, up: Tensor) -> Tensor:
+    if name == "swiglu":
+        return F.silu(gate) * up
+    if name == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    if name == "gelu":
+        return F.gelu(up, approximate="tanh")
+    raise ValueError(name)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (B, S, H, dh) or (B, S, dh); positions: (S,). Half-split rotation
+    with fp32 angles."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
+                      -torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[:, None].float() * freqs                         # (S, half)
+    ang = ang[None, :, None, :] if x.ndim == 4 else ang[None, :, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP
+# ---------------------------------------------------------------------------
+def mlp_pd(cfg: ModelConfig) -> dict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": PD((D, F_), ("embed", "ff")),
+        "w_up": PD((D, F_), ("embed", "ff")),
+        "w_down": PD((F_, D), ("ff", "embed")),
+    }
+
+
+class MLP(ParamModule):
+    def __init__(self, cfg: ModelConfig, *, dtype, device=None):
+        super().__init__(mlp_pd(cfg), dtype=dtype, device=device)
+
+    def forward(self, x: Tensor, cfg: ModelConfig) -> Tensor:
+        h = _act(cfg.act, x @ self.w_gate, x @ self.w_up)
+        return h @ self.w_down
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k, capacity-dropped, scatter dispatch)
+# ---------------------------------------------------------------------------
+def moe_pd(cfg: ModelConfig) -> dict:
+    # expert dim padded to a shardable multiple; padded experts are masked
+    # out of the router
+    D, E, Fe = cfg.d_model, cfg.padded_experts, cfg.d_expert
+    return {
+        "router": PD((D, E), ("embed", "experts"), scale=0.02),
+        "w_gate": PD((E, D, Fe), ("experts", "embed", None)),
+        "w_up": PD((E, D, Fe), ("experts", "embed", None)),
+        "w_down": PD((E, Fe, D), ("experts", None, "embed")),
+    }
+
+
+class MoE(ParamModule):
+    """Token-dropping top-k MoE: the reference's local path (``_moe_local``).
+    Its expert-parallel path over a mesh comes with the sharding rules
+    (ROADMAP.md item A15.3)."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device=None):
+        super().__init__(moe_pd(cfg), dtype=dtype, device=device)
+
+    def forward(self, x: Tensor, cfg: ModelConfig) -> Tensor:
+        return _moe_local(self, x, cfg)
+
+
+def _moe_local(p: MoE, x: Tensor, cfg: ModelConfig) -> Tensor:
+    B, S, D = x.shape
+    E, K = cfg.padded_experts, cfg.top_k
+    T = B * S
+    # capacity over this call's tokens: prefill and decode drop differently
+    C = max(1, int(T * K / cfg.n_experts * cfg.capacity_factor))
+
+    xf = x.reshape(T, D)
+    logits = (xf @ p.router).float()                                 # (T, E_pad)
+    if E != cfg.n_experts:   # mask padded experts out of the routing
+        pad = torch.arange(E, device=x.device)[None, :] >= cfg.n_experts
+        logits = torch.where(pad, NEG, logits)
+    probs = torch.softmax(logits, -1)
+    gate, eidx = torch.topk(probs, K, dim=-1)                        # (T, K)
+    gate = (gate / torch.sum(gate, -1, keepdim=True)).to(x.dtype)
+
+    e_flat = eidx.reshape(-1)                                        # (T*K,)
+    # position of each assignment within its expert (priority: token order)
+    onehot = F.one_hot(e_flat, E).to(torch.int32)                    # (T*K, E)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot    # count before me
+    pos = torch.gather(pos, 1, e_flat[:, None])[:, 0]
+    keep = pos < C
+    slot = torch.where(keep, e_flat * C + pos, E * C)               # overflow -> last row
+
+    x_rep = torch.repeat_interleave(xf, K, dim=0)                    # (T*K, D)
+    buf = torch.zeros(E * C + 1, D, dtype=x.dtype, device=x.device)
+    buf.index_add_(0, slot, x_rep * keep[:, None].to(x.dtype))
+    xe = buf[:-1].reshape(E, C, D)
+
+    h = _act(cfg.act, torch.einsum("ecd,edf->ecf", xe, p.w_gate),
+             torch.einsum("ecd,edf->ecf", xe, p.w_up))
+    ye = torch.einsum("ecf,efd->ecd", h, p.w_down)
+
+    yf = ye.reshape(E * C, D)
+    y_tok = torch.where(keep[:, None], yf[torch.clamp(slot, max=E * C - 1)],
+                        torch.zeros((), dtype=yf.dtype, device=yf.device))
+    y = (y_tok.reshape(T, K, D) * gate[..., None]).sum(dim=1)
+    return y.reshape(B, S, D)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA / sliding / cross) with a chunked online-softmax option
+# ---------------------------------------------------------------------------
+def attn_pd(cfg: ModelConfig, cross: bool = False) -> dict:
+    D, Hkv, dh = cfg.d_model, cfg.n_kv_heads, cfg.d_head
+    Hq = cfg.padded_heads     # dummy heads zeroed in attn_apply
+    p = {
+        "wq": PD((D, Hq, dh), ("embed", "heads", None)),
+        "wk": PD((D, Hkv, dh), ("embed", "kv_heads", None)),
+        "wv": PD((D, Hkv, dh), ("embed", "kv_heads", None)),
+        "wo": PD((Hq, dh, D), ("heads", None, "embed")),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = PD((Hq, dh), ("heads", None), "zeros")
+        p["bk"] = PD((Hkv, dh), ("kv_heads", None), "zeros")
+        p["bv"] = PD((Hkv, dh), ("kv_heads", None), "zeros")
+    if cross:
+        p["q_norm"] = PD((dh,), (None,), "ones")
+        p["k_norm"] = PD((dh,), (None,), "ones")
+        p["gate"] = PD((1,), (None,), "zeros")   # zero-init cross gate
+    return p
+
+
+def _mask(si: Tensor, sj: Tensor, causal: bool, window: int) -> Tensor:
+    """si: query positions (Sq,), sj: key positions (Sk,) -> bool (Sq, Sk)."""
+    m = torch.ones((si.shape[0], sj.shape[0]), dtype=torch.bool, device=si.device)
+    if causal:
+        m &= sj[None, :] <= si[:, None]
+    if window > 0:
+        m &= sj[None, :] > si[:, None] - window
+    return m
+
+
+def _masked_write(cache: Tensor, new: Tensor, idx: Tensor) -> Tensor:
+    """Write ``new`` (B, 1, ...) into ``cache`` (B, Smax, ...) at position
+    ``idx`` (a 0-d tensor on the cache's device), in place."""
+    return cache.index_copy_(1, idx.reshape(1).long(), new.to(cache.dtype))
+
+
+def _block_write(cache: Tensor, new: Tensor) -> Tensor:
+    """Write a length-S block at position 0 (prefill), in place."""
+    cache[:, :new.shape[1]] = new.to(cache.dtype)
+    return cache
+
+
+def _expand_kv(k: Tensor, groups: int) -> Tensor:
+    """(B,S,Hkv,dh) -> (B,S,Hq,dh): query head h reads KV head h // G."""
+    return torch.repeat_interleave(k, groups, dim=2) if groups > 1 else k
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor | None) -> Tensor:
+    """q: (B,Sq,H,dh), k/v: (B,Sk,H,dh) -> (B,Sq,H,dh)."""
+    dh = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    scores = scores / _sqrt(dh)
+    if mask is not None:
+        scores = torch.where(mask[None, None], scores, NEG)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def _chunked_sdpa(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
+                  causal: bool, window: int, chunk: int, q_block: int = 2048) -> Tensor:
+    """Online-softmax attention: q in blocks of ``q_block``, KV in chunks of
+    ``chunk``. Peak score tensor: (B, H, q_block, chunk)."""
+    B, Sq, H, dh = q.shape
+    if Sq > q_block and Sq % q_block == 0:
+        outs = [_chunked_sdpa_core(q[:, i:i + q_block], k, v, q_pos[i:i + q_block], k_pos,
+                                   causal, window, chunk)
+                for i in range(0, Sq, q_block)]
+        return torch.cat(outs, dim=1)
+    return _chunked_sdpa_core(q, k, v, q_pos, k_pos, causal, window, chunk)
+
+
+def _chunked_sdpa_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
+                       causal: bool, window: int, chunk: int) -> Tensor:
+    """KV-chunk online softmax. q: (B,Sq,H,dh), k/v: (B,Sk,H,dh|dv).
+
+    The running max starts at -inf and masked scores are -1e30, as in the
+    reference: a KV chunk whose keys are all masked (a sliding window's
+    past) gives p = 1 on every key until a chunk with a real key rescales
+    it by exp(-1e30 - m) = 0; with -inf masks it would give NaN."""
+    B, Sq, H, dh = q.shape
+    dv = v.shape[-1]
+    Sk = k.shape[1]
+    nc = -(-Sk // chunk)
+    pad = nc * chunk - Sk
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kpos = F.pad(k_pos, (0, pad), value=INT32_MAX)
+    scale = _inv_sqrt(dh)
+
+    m = torch.full((B, H, Sq), float("-inf"), dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, dv), dtype=torch.float32, device=q.device)
+    for c in range(nc):
+        kb, vb = kp[:, c * chunk:(c + 1) * chunk], vp[:, c * chunk:(c + 1) * chunk]
+        pb = kpos[c * chunk:(c + 1) * chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kb).float() * scale
+        msk = _mask(q_pos, pb, causal, window) & (pb[None, :] < Sk)
+        s = torch.where(msk[None, None], s, NEG)
+        m_new = torch.maximum(m, torch.amax(s, -1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, -1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype), vb).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)                           # (B,Sq,H,dv)
+
+
+def _self_attend(q, kf, vf, positions, cfg: ModelConfig, window: int) -> Tensor:
+    """Train / prefill attention over fresh KV: dense up to
+    ``cfg.dense_attn_max_seq`` query rows, chunked above."""
+    if q.shape[1] <= cfg.dense_attn_max_seq:
+        return _sdpa(q, kf, vf, _mask(positions, positions, True, window))
+    return _chunked_sdpa(q, kf, vf, positions, positions, True, window, cfg.attn_chunk)
+
+
+def _zero_dummy_heads(o: Tensor, cfg: ModelConfig) -> Tensor:
+    """Zero the padded heads' outputs (B,S,H,dh): the true-head model."""
+    H = o.shape[2]
+    if H == cfg.n_heads:
+        return o
+    keep = torch.arange(H, device=o.device) < cfg.n_heads
+    return o * keep[None, None, :, None].to(o.dtype)
+
+
+class Attention(ParamModule):
+    """GQA attention: full, sliding (``spec.kind == "sliding"``) or cross
+    (``cross=True``: keys and values from the vision embeddings, a tanh
+    gate on the output)."""
+
+    def __init__(self, cfg: ModelConfig, cross: bool = False, *, dtype, device=None):
+        super().__init__(attn_pd(cfg, cross), dtype=dtype, device=device)
+
+    def forward(self, x, cfg, spec, **kw):
+        return attn_apply(self, x, cfg, spec, **kw)
+
+
+def attn_apply(p: Attention, x: Tensor, cfg: ModelConfig, spec: LayerSpec, *,
+               positions: Tensor, kv_x: Tensor | None = None, cache: dict | None = None,
+               pos_scalar: Tensor | None = None):
+    """Returns (out, new_cache).
+
+    * train / prefill: ``cache is None`` or Sq > 1 — full-sequence attention
+      (dense, or chunked online softmax above ``cfg.dense_attn_max_seq``);
+      prefill writes the block's k/v at position 0 of the cache.
+    * decode: x is (B, 1, D); ``cache`` holds k/v at capacity S_max and
+      ``pos_scalar`` is the write index. Cross layers reuse the image k/v
+      held in the cache.
+    ``positions``: (Sq,) absolute positions of the query tokens. Cache
+    writes are in place.
+    """
+    B, Sq, D = x.shape
+    Hkv, dh = cfg.n_kv_heads, cfg.d_head
+    Hq = cfg.padded_heads
+    G = Hq // Hkv
+    cross = spec.kind == "cross"
+    window = cfg.sliding_window if spec.kind == "sliding" else 0
+
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    if "bq" in p._pds:
+        q = q + p.bq
+
+    if cross:
+        if cache is not None and kv_x is None:
+            k, v = cache["k"], cache["v"]          # static image kv
+            new_cache = cache
+        else:
+            k = torch.einsum("bsd,dhk->bshk", kv_x, p.wk)
+            v = torch.einsum("bsd,dhk->bshk", kv_x, p.wv)
+            new_cache = {"k": k, "v": v}
+        if "q_norm" in p._pds:
+            q = rms_norm(q, p.q_norm, cfg.norm_eps)
+            k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        o = _sdpa(q, _expand_kv(k, G), _expand_kv(v, G), None)
+    else:
+        k = torch.einsum("bsd,dhk->bshk", x, p.wk)
+        v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+        if "bk" in p._pds:
+            k, v = k + p.bk, v + p.bv
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)     # new tokens only
+
+        if cache is not None and Sq > 1:
+            # prefill: write the whole kv block at 0, attend over fresh kv
+            new_cache = {"k": _block_write(cache["k"], k), "v": _block_write(cache["v"], v)}
+            o = _self_attend(q, _expand_kv(k, G), _expand_kv(v, G), positions, cfg, window)
+        elif cache is not None:
+            # decode: write new kv at pos_scalar, attend over the cache
+            idx = pos_scalar
+            kc = _masked_write(cache["k"], k, idx)
+            vc = _masked_write(cache["v"], v, idx)
+            new_cache = {"k": kc, "v": vc}
+            k_pos = torch.arange(kc.shape[1], device=x.device)
+            valid = k_pos <= idx
+            if window > 0:
+                valid &= k_pos > idx - window
+            # grouped form: each kv head against its G query heads
+            qg = q.reshape(B, Sq, Hkv, G, dh)
+            s = torch.einsum("bqngd,bknd->bngqk", qg, kc).float()
+            s = s / _sqrt(dh)
+            s = torch.where(valid[None, None, None, None, :], s, NEG)
+            w = torch.softmax(s, -1).to(x.dtype)
+            o = torch.einsum("bngqk,bknd->bqngd", w, vc)
+        else:
+            new_cache = None
+            o = _self_attend(q, _expand_kv(k, G), _expand_kv(v, G), positions, cfg, window)
+
+    o = _zero_dummy_heads(o.reshape(B, Sq, Hq, dh), cfg)
+    out = torch.einsum("bshk,hkd->bsd", o, p.wo)
+    if cross and "gate" in p._pds:
+        out = out * torch.tanh(p.gate)
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (MiniCPM3 / DeepSeek-style latent attention)
+# ---------------------------------------------------------------------------
+def mla_pd(cfg: ModelConfig) -> dict:
+    D, H = cfg.d_model, cfg.padded_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rp, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": PD((D, r_q), ("embed", None)),
+        "q_a_norm": PD((r_q,), (None,), "ones"),
+        "wq_b": PD((r_q, H, nope + rp), (None, "heads", None)),
+        "w_dkv": PD((D, r_kv), ("embed", None)),
+        "kv_a_norm": PD((r_kv,), (None,), "ones"),
+        "w_krope": PD((D, rp), ("embed", None)),
+        "w_uk": PD((r_kv, H, nope), (None, "heads", None)),
+        "w_uv": PD((r_kv, H, vd), (None, "heads", None)),
+        "wo": PD((H, vd, D), ("heads", None, "embed")),
+    }
+
+
+class MLA(ParamModule):
+    """Multi-head latent attention: expanded keys for train / prefill, the
+    absorbed form over the compressed cache for decode."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device=None):
+        super().__init__(mla_pd(cfg), dtype=dtype, device=device)
+
+    def forward(self, x, cfg, **kw):
+        return mla_apply(self, x, cfg, **kw)
+
+
+def mla_apply(p: MLA, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
+              cache: dict | None = None, pos_scalar: Tensor | None = None):
+    B, Sq, D = x.shape
+    H = cfg.padded_heads
+    nope, rp = cfg.qk_nope_dim, cfg.qk_rope_dim
+
+    qa = rms_norm(x @ p.wq_a, p.q_a_norm, cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", qa, p.wq_b)                   # (B,S,H,nope+rp)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    c_kv = rms_norm(x @ p.w_dkv, p.kv_a_norm, cfg.norm_eps)         # (B,S,r_kv)
+    k_rope = x @ p.w_krope                                           # (B,S,rp)
+
+    if cache is None or Sq > 1:
+        q_rope = rope(q_rope, positions, cfg.rope_theta)
+        k_rope = rope(k_rope, positions, cfg.rope_theta)
+        new_cache = None
+        if cache is not None:   # prefill: store the compressed kv at position 0
+            new_cache = {"c_kv": _block_write(cache["c_kv"], c_kv),
+                         "k_rope": _block_write(cache["k_rope"], k_rope)}
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uk)
+        v = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uv)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, Sq, H, rp)], -1)
+        qfull = torch.cat([q_nope, q_rope], -1)
+        o = _self_attend(qfull, k, v, positions, cfg, 0)
+    else:
+        # absorbed decode: scores in the latent space (B,S,r_kv)
+        idx = pos_scalar
+        q_rope = rope(q_rope, idx.reshape(1), cfg.rope_theta)
+        k_rope = rope(k_rope, idx.reshape(1), cfg.rope_theta)
+        ckv_c = _masked_write(cache["c_kv"], c_kv, idx)
+        krope_c = _masked_write(cache["k_rope"], k_rope, idx)
+        new_cache = {"c_kv": ckv_c, "k_rope": krope_c}
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p.w_uk)       # absorb W_uk
+        s = (torch.einsum("bshr,btr->bhst", q_lat, ckv_c)
+             + torch.einsum("bshk,btk->bhst", q_rope, krope_c)).float()
+        s = s / _sqrt(nope + rp)
+        valid = torch.arange(ckv_c.shape[1], device=x.device) <= idx
+        s = torch.where(valid[None, None, None, :], s, NEG)
+        w = torch.softmax(s, -1).to(x.dtype)
+        o_lat = torch.einsum("bhst,btr->bshr", w, ckv_c)            # (B,1,H,r_kv)
+        o = torch.einsum("bshr,rhk->bshk", o_lat, p.w_uv)           # absorb W_uv
+
+    o = _zero_dummy_heads(o, cfg)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo), new_cache

@@ -1,0 +1,326 @@
+"""Model assembly: the layer stack, loss, and prefill / decode.
+
+Counterpart of ``repro/models/model.py``. The reference stacks the
+parameters of the smallest repeating *period* of the layer pattern and
+scans over them; the port keeps one module per layer in a plain
+``ModuleList`` in pattern order and loops over it: the reference's period
+slot ``i`` at repeat ``r`` is layer ``r * P + i``, then the tail
+(``convert.model_params_from_numpy`` maps one onto the other). The
+reference's sharding annotations, rematerialization and sqrt-checkpointed
+scans change no value and are left out; the annotations return with the
+sharding rules (ROADMAP.md item A15.3).
+
+The public functions keep the reference's names and signatures with the
+model in place of the parameter tree: ``forward(model, cfg, batch)``,
+``loss_fn``, ``prefill``, ``decode_step``, ``init_cache``, ``cache_specs``,
+``model_params(generator, cfg)`` and ``model_param_structs(cfg)``.
+``model_param_pspecs`` and ``cache_pspecs`` refuse until the sharding
+rules (A15.3).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import LayerSpec, ModelConfig, torch_dtype
+from . import layers as L
+from . import ssm as S
+from .params import PD, ParamModule, init_module, init_params, param_shape_structs
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Period decomposition
+# ---------------------------------------------------------------------------
+def split_periods(pattern: tuple[LayerSpec, ...]):
+    """-> (period, n_periods, tail). Smallest p with pattern = period*k + tail
+    and tail a prefix of the period; k maximal."""
+    Lp = len(pattern)
+    for p in range(1, Lp + 1):
+        k = Lp // p
+        period = pattern[:p]
+        if period * k == pattern[: p * k] and pattern[p * k:] == period[: Lp - p * k]:
+            if k >= 1:
+                return period, k, pattern[p * k:]
+    return pattern, 1, ()
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+def _mixer(cfg: ModelConfig, spec: LayerSpec, dtype, device) -> nn.Module:
+    if spec.kind == "mamba":
+        return S.Mamba2Mixer(cfg, dtype=dtype, device=device)
+    if spec.kind == "cross":
+        return L.Attention(cfg, cross=True, dtype=dtype, device=device)
+    if cfg.use_mla:
+        return L.MLA(cfg, dtype=dtype, device=device)
+    return L.Attention(cfg, dtype=dtype, device=device)
+
+
+def layer_pd(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    D = cfg.d_model
+    d: dict[str, Any] = {"ln1": PD((D,), ("embed",), "ones")}
+    if spec.kind == "mamba":
+        d["mixer"] = S.ssm_pd(cfg)
+    elif spec.kind == "cross":
+        d["mixer"] = L.attn_pd(cfg, cross=True)
+    elif cfg.use_mla:
+        d["mixer"] = L.mla_pd(cfg)
+    else:
+        d["mixer"] = L.attn_pd(cfg)
+    if spec.moe or cfg.d_ff > 0:
+        d["ln2"] = PD((D,), ("embed",), "ones")
+        d["mlp"] = L.moe_pd(cfg) if spec.moe else L.mlp_pd(cfg)
+    return d
+
+
+class Block(ParamModule):
+    """One layer: ``ln1``, ``mixer`` (attention, MLA or Mamba-2) and, where
+    the config has one, ``ln2`` and ``mlp`` (dense or MoE)."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, *, dtype, device=None):
+        pd = layer_pd(cfg, spec)
+        super().__init__({k: v for k, v in pd.items() if k not in ("mixer", "mlp")},
+                         dtype=dtype, device=device)
+        self.mixer = _mixer(cfg, spec, dtype, device)
+        if "mlp" in pd:
+            self.mlp = (L.MoE if spec.moe else L.MLP)(cfg, dtype=dtype, device=device)
+
+    def forward(self, x, cfg, spec, **kw):
+        return layer_apply(self, x, cfg, spec, **kw)
+
+
+def layer_apply(p: Block, x: Tensor, cfg: ModelConfig, spec: LayerSpec, *, positions,
+                vision_kv=None, cache=None, pos_scalar=None):
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    if spec.kind == "mamba":
+        mix, new_cache = p.mixer(h, cfg, cache=cache)
+    elif spec.kind == "cross":
+        mix, new_cache = p.mixer(h, cfg, spec, positions=positions, kv_x=vision_kv,
+                                 cache=cache, pos_scalar=pos_scalar)
+    elif cfg.use_mla:
+        mix, new_cache = p.mixer(h, cfg, positions=positions, cache=cache,
+                                 pos_scalar=pos_scalar)
+    else:
+        mix, new_cache = p.mixer(h, cfg, spec, positions=positions, cache=cache,
+                                 pos_scalar=pos_scalar)
+    x = x + mix
+    if hasattr(p, "mlp"):
+        h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
+        x = x + p.mlp(h2, cfg)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# The model and its parameters
+# ---------------------------------------------------------------------------
+def model_pd(cfg: ModelConfig) -> dict:
+    """The port's descriptor tree: the reference's, with ``layers`` (one
+    tree a layer, in pattern order) in place of its stacked ``period`` and
+    its ``tail``."""
+    D, V = cfg.d_model, cfg.padded_vocab
+    tree: dict[str, Any] = {}
+    # the embed table always exists: "embeds" frontends (audio) use it for
+    # decode (the EnCodec codebook is the vocab)
+    tree["embed"] = PD((V, D), ("vocab", "embed"), "embed", scale=0.02)
+    if cfg.frontend == "tokens+vision":
+        tree["vision_proj"] = PD((cfg.d_vision, D), (None, "embed"))
+    tree["layers"] = [layer_pd(cfg, spec) for spec in cfg.layer_pattern]
+    tree["ln_f"] = PD((D,), ("embed",), "ones")
+    tree["lm_head"] = PD((D, V), ("embed", "vocab"), scale=0.02)
+    return tree
+
+
+class Model(ParamModule):
+    """The LM: ``embed``, ``vision_proj`` (vision frontends), ``layers``
+    (a ``ModuleList`` of ``Block``s in pattern order), ``ln_f``, ``lm_head``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype=None, device=None):
+        dtype = torch_dtype(cfg.dtype) if dtype is None else dtype
+        pd = model_pd(cfg)
+        del pd["layers"]
+        super().__init__(pd, dtype=dtype, device=device)
+        self.layers = nn.ModuleList(Block(cfg, spec, dtype=dtype, device=device)
+                                    for spec in cfg.layer_pattern)
+
+    def forward(self, cfg: ModelConfig, batch: dict) -> Tensor:
+        return forward(self, cfg, batch)
+
+
+def model_params(generator: torch.Generator, cfg: ModelConfig, *,
+                 device: str | torch.device | None = None) -> Model:
+    """A ``Model`` at ``cfg.dtype`` with random weights from ``generator``,
+    on the generator's device unless ``device`` says otherwise."""
+    device = generator.device if device is None else torch.device(device)
+    return init_module(Model(cfg, device=device), generator)
+
+
+def model_param_structs(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors at ``cfg.dtype``: no allocation."""
+    return param_shape_structs(model_pd(cfg), torch_dtype(cfg.dtype))
+
+
+def model_param_pspecs(cfg: ModelConfig, rules):
+    """Not ported: the sharding rules are ROADMAP.md item A15.3."""
+    raise NotImplementedError("model_param_pspecs: the sharding rules are not ported "
+                              "(ROADMAP.md item A15.3)")
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+def _embed_inputs(model: Model, cfg: ModelConfig, batch: dict) -> Tensor:
+    if "embeds" in batch:
+        return batch["embeds"].to(torch_dtype(cfg.dtype))
+    return model.embed[batch["tokens"].long()]
+
+
+def _vision_kv_src(model: Model, cfg: ModelConfig, batch: dict) -> Tensor | None:
+    if cfg.frontend != "tokens+vision":
+        return None
+    return batch["vision_embeds"].to(torch_dtype(cfg.dtype)) @ model.vision_proj
+
+
+def _stack_apply(model: Model, cfg: ModelConfig, x: Tensor, *, positions, vision_kv=None,
+                 caches=None, pos_scalar=None):
+    """Run the layers in order. caches: None or one cache a layer. Returns
+    (x, new caches or None)."""
+    new_caches = None if caches is None else []
+    for i, (block, spec) in enumerate(zip(model.layers, cfg.layer_pattern)):
+        x, nc = block(x, cfg, spec, positions=positions, vision_kv=vision_kv,
+                      cache=None if caches is None else caches[i], pos_scalar=pos_scalar)
+        if caches is not None:
+            new_caches.append(nc)
+    return x, new_caches
+
+
+def _backbone(model: Model, cfg: ModelConfig, batch: dict) -> Tensor:
+    """Embed -> stack -> final norm. Returns hidden states (B, S, D)."""
+    x = _embed_inputs(model, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    vkv = _vision_kv_src(model, cfg, batch)
+    x, _ = _stack_apply(model, cfg, x, positions=positions, vision_kv=vkv)
+    return L.rms_norm(x, model.ln_f, cfg.norm_eps)
+
+
+def forward(model: Model, cfg: ModelConfig, batch: dict) -> Tensor:
+    """Training/prefill forward -> logits (B, S, padded_vocab)."""
+    x = _backbone(model, cfg, batch)
+    return torch.einsum("bsd,dv->bsv", x, model.lm_head)
+
+
+def _ce_chunk(x_c: Tensor, labels_c: Tensor, lm_head: Tensor, cfg: ModelConfig) -> Tensor:
+    """Summed CE over one sequence chunk (logits live only for the chunk)."""
+    logits = torch.einsum("bsd,dv->bsv", x_c, lm_head)
+    V = cfg.padded_vocab
+    if V != cfg.vocab:   # mask padded vocab entries out of the normalizer
+        pad = torch.arange(V, device=logits.device) >= cfg.vocab
+        logits = torch.where(pad[None, None, :], torch.finfo(logits.dtype).min, logits)
+    m = torch.amax(logits, dim=-1).detach()
+    sumexp = torch.sum(torch.exp((logits - m[..., None]).float()), dim=-1)
+    lse = m.float() + torch.log(sumexp)
+    gold = torch.gather(logits, -1, labels_c.long()[..., None])[..., 0]
+    return torch.sum(lse - gold.float())
+
+
+def loss_fn(model: Model, cfg: ModelConfig, batch: dict, *, ce_chunk: int = 512):
+    """Mean next-token CE over the batch -> (loss, {"loss", "ppl_proxy"}).
+    Differentiable; training with it is ROADMAP.md item A15.2."""
+    x = _backbone(model, cfg, batch)                                 # (B,S,D)
+    labels = batch["labels"]
+    B, S_, _ = x.shape
+    Sc = min(ce_chunk, S_)
+    if S_ % Sc:
+        Sc = S_                                                      # odd sizes: one chunk
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S_, Sc):
+        total = total + _ce_chunk(x[:, c:c + Sc], labels[:, c:c + Sc], model.lm_head, cfg)
+    loss = total / (B * S_)
+    return loss, {"loss": loss, "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache specs and init, prefill, decode
+# ---------------------------------------------------------------------------
+def layer_cache_pd(cfg: ModelConfig, spec: LayerSpec, B: int, S_max: int) -> dict:
+    if spec.kind == "mamba":
+        H, N, P_, di, K = (cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim, cfg.d_inner,
+                           cfg.ssm_conv)
+        return {
+            "state": PD((B, H, N, P_), ("batch", "heads", None, None), "zeros"),
+            "conv": PD((B, K - 1, di + 2 * N), ("batch", None, "ff"), "zeros"),
+        }
+    if spec.kind == "cross":
+        shape = (B, cfg.n_image_tokens, cfg.n_kv_heads, cfg.d_head)
+        axes = ("batch", None, "kv_heads", None)
+        return {"k": PD(shape, axes, "zeros"), "v": PD(shape, axes, "zeros")}
+    if cfg.use_mla:
+        return {
+            "c_kv": PD((B, S_max, cfg.kv_lora_rank), ("batch", "cache_seq", None), "zeros"),
+            "k_rope": PD((B, S_max, cfg.qk_rope_dim), ("batch", "cache_seq", None), "zeros"),
+        }
+    seq_ax = "cache_seq" if B == 1 else "kv_seq"
+    shape = (B, S_max, cfg.n_kv_heads, cfg.d_head)
+    axes = ("batch", seq_ax, "kv_heads", None)
+    return {"k": PD(shape, axes, "zeros"), "v": PD(shape, axes, "zeros")}
+
+
+def cache_pd(cfg: ModelConfig, B: int, S_max: int) -> dict:
+    """The decode cache: ``pos`` and one tree a layer, in pattern order."""
+    return {"pos": PD((), (), "zeros"),
+            "layers": [layer_cache_pd(cfg, spec, B, S_max) for spec in cfg.layer_pattern]}
+
+
+def cache_specs(cfg: ModelConfig, B: int, S_max: int) -> dict:
+    """The cache as ``meta`` tensors (``pos`` int32): no allocation."""
+    structs = param_shape_structs(cache_pd(cfg, B, S_max), torch_dtype(cfg.dtype))
+    structs["pos"] = torch.empty((), dtype=torch.int32, device="meta")
+    return structs
+
+
+def init_cache(cfg: ModelConfig, B: int, S_max: int, *,
+               device: str | torch.device = "cuda") -> dict:
+    out = init_params(None, cache_pd(cfg, B, S_max), torch_dtype(cfg.dtype), device)
+    out["pos"] = torch.zeros((), dtype=torch.int32, device=device)
+    return out
+
+
+def cache_pspecs(cfg: ModelConfig, B: int, S_max: int, rules):
+    """Not ported: the sharding rules are ROADMAP.md item A15.3."""
+    raise NotImplementedError("cache_pspecs: the sharding rules are not ported "
+                              "(ROADMAP.md item A15.3)")
+
+
+@torch.no_grad()
+def prefill(model: Model, cfg: ModelConfig, batch: dict, S_max: int):
+    """Run the prompt through the stack, building a cache of capacity S_max.
+    Returns (last-position logits (B, padded_vocab), cache)."""
+    B, S_ = (batch["embeds"] if cfg.frontend == "embeds" else batch["tokens"]).shape[:2]
+    x = _embed_inputs(model, cfg, batch)
+    cache = init_cache(cfg, B, S_max, device=x.device)
+    positions = torch.arange(S_, device=x.device)
+    vkv = _vision_kv_src(model, cfg, batch)
+    x, new_caches = _stack_apply(model, cfg, x, positions=positions, vision_kv=vkv,
+                                 caches=cache["layers"])
+    x = L.rms_norm(x, model.ln_f, cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", x[:, -1:], model.lm_head)
+    return logits[:, 0], {"pos": torch.tensor(S_, dtype=torch.int32, device=x.device),
+                          "layers": new_caches}
+
+
+@torch.no_grad()
+def decode_step(model: Model, cfg: ModelConfig, cache: dict, batch: dict):
+    """One token step. batch: {"token": (B,)}. The new token's entries are
+    written into the cache's tensors in place; the returned cache holds
+    them and ``pos + 1``. Returns (logits (B, padded_vocab), cache)."""
+    x = model.embed[batch["token"].long()][:, None, :]
+    pos = cache["pos"]
+    x, new_caches = _stack_apply(model, cfg, x, positions=pos.reshape(1),
+                                 caches=cache["layers"], pos_scalar=pos)
+    x = L.rms_norm(x, model.ln_f, cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", x, model.lm_head)[:, 0]
+    return logits, {"pos": pos + 1, "layers": new_caches}

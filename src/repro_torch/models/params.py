@@ -1,0 +1,114 @@
+"""Parameter descriptors, and the modules built from them.
+
+Counterpart of ``repro/models/params.py``. Layers declare their parameters
+as ``PD(shape, logical_axes, init)`` trees (nested dicts and lists); from
+one descriptor tree come (a) initialized tensors (``init_params``), (b)
+``meta`` tensors of the same shapes (``param_shape_structs``: no
+allocation) and (c) a ``ParamModule`` whose parameters carry the tree's
+leaf names, so that a reference parameter tree maps onto it one to one.
+The logical axes are kept for the sharding rules (ROADMAP.md item A15.3).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+
+class PD(NamedTuple):
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"          # normal | zeros | ones | embed | ssm_A
+    scale: float | None = None    # stddev; default 1/sqrt(fan_in)
+
+
+def _is_pd(x) -> bool:
+    return isinstance(x, PD)
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every PD leaf of a tree of dicts and lists."""
+    if _is_pd(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    raise TypeError(f"not a descriptor tree: {type(tree).__name__}")
+
+
+def _init_leaf(pd: PD, generator: torch.Generator | None, dtype, device) -> torch.Tensor:
+    if pd.init == "zeros":
+        return torch.zeros(pd.shape, dtype=dtype, device=device)
+    if pd.init == "ones":
+        return torch.ones(pd.shape, dtype=dtype, device=device)
+    if pd.init == "ssm_A":           # A_log in [log 1, log 16]
+        u = torch.rand(pd.shape, generator=generator, device=device, dtype=torch.float32)
+        return torch.log(1.0 + 15.0 * u).to(dtype)
+    fan_in = pd.shape[0] if len(pd.shape) == 1 else math.prod(pd.shape[:-1])
+    scale = pd.scale if pd.scale is not None else fan_in ** -0.5
+    if pd.init == "embed":
+        scale = 1.0 if pd.scale is None else pd.scale
+    z = torch.randn(pd.shape, generator=generator, device=device, dtype=torch.float32)
+    return (z * scale).to(dtype)
+
+
+def init_params(generator: torch.Generator | None, tree, dtype: torch.dtype,
+                device: str | torch.device | None = None):
+    """Initialized tensors for a descriptor tree, drawn from ``generator`` on
+    its device (or ``device``): the reference's init kinds and scales. The
+    draws are torch's, so the values differ from the reference's. A tree of
+    "zeros" and "ones" only (a cache) needs no generator."""
+    device = generator.device if device is None else torch.device(device)
+    return tree_map(lambda pd: _init_leaf(pd, generator, dtype, device), tree)
+
+
+def param_shape_structs(tree, dtype: torch.dtype) -> dict:
+    """``meta`` tensors of the tree's shapes at ``dtype``: no allocation."""
+    return tree_map(lambda pd: torch.empty(pd.shape, dtype=dtype, device="meta"), tree)
+
+
+def param_pspecs(tree, rules):
+    """Not ported: the sharding rules are ROADMAP.md item A15.3."""
+    raise NotImplementedError("param_pspecs: the sharding rules are not ported "
+                              "(ROADMAP.md item A15.3)")
+
+
+def stack_pds(tree, n: int, axis_name: str | None = "fsdp") -> dict:
+    """Stack descriptors along a new leading axis (the reference's period
+    stacking; the port keeps its layers unstacked, so only the shapes of
+    the reference's trees use this)."""
+    return tree_map(lambda pd: PD((n,) + pd.shape, (axis_name,) + pd.axes, pd.init, pd.scale),
+                    tree)
+
+
+class ParamModule(nn.Module):
+    """A module whose parameters are a descriptor tree's leaves, under the
+    tree's names: a PD leaf becomes an ``nn.Parameter`` (uninitialized until
+    :func:`init_module`), a nested dict a ``ParamModule``. Subclasses that
+    hold submodules of their own pass the remaining leaves here."""
+
+    def __init__(self, tree: dict, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        self._pds: dict[str, PD] = {}
+        for name, leaf in tree.items():
+            if _is_pd(leaf):
+                self._pds[name] = leaf
+                self.register_parameter(
+                    name, nn.Parameter(torch.empty(leaf.shape, dtype=dtype, device=device)))
+            else:
+                self.add_module(name, ParamModule(leaf, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every ``ParamModule`` parameter from its descriptor, drawing from
+    ``generator`` in the order of ``module.named_modules()``."""
+    for sub in module.modules():
+        if isinstance(sub, ParamModule):
+            for name, pd in sub._pds.items():
+                p = getattr(sub, name)
+                p.copy_(_init_leaf(pd, generator, p.dtype, p.device))
+    return module

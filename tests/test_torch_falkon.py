@@ -270,7 +270,11 @@ def test_port_is_jax_free():
     code = ("import sys, repro_torch, repro_torch.ops, repro_torch.convert, "
             "repro_torch.data.synthetic, repro_torch.kernels.ops, repro_torch.kernels.ref, "
             "repro_torch.kernels.build, repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.distributed, repro_torch.launch.mesh, repro_torch.data.pipeline; "
+            "repro_torch.distributed, repro_torch.launch.mesh, repro_torch.data.pipeline, "
+            "repro_torch.configs, repro_torch.models, repro_torch.models.layers, "
+            "repro_torch.models.ssm, repro_torch.models.params; "
+            "from repro_torch.data import token_stream, TokenStreamConfig; "
+            "from repro_torch.launch.serve import serve_lm; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -16,6 +16,7 @@ launcher (``repro_torch.launch.serve``) against the JAX package's.
 * The port's server against the reference's on the same carried-over
   estimator; the stacked path tier against each estimator.
 """
+import ast
 import collections
 import dataclasses
 
@@ -346,9 +347,10 @@ def test_serve_main_falkon(capsys, extra):
         assert "ladder (8, 16)" in out and "(2 rungs warmed)" in out
 
 
-def test_request_trace_and_lm_mode():
+def test_request_trace_and_lm_mode(capsys):
     """The trace's sizes are the reference's draw from the same seed; the
-    LM mode is not ported and says which item ports it."""
+    LM mode runs the reduced config on the CPU and prints the reference's
+    two lines."""
     from repro_torch.launch import serve as serve_mod
     trace = serve_mod.make_request_trace(50, 256, 18, seed=3)
     sizes = np.random.default_rng(3).integers(1, 257, size=50)
@@ -356,8 +358,11 @@ def test_request_trace_and_lm_mode():
     assert all(t.dtype == np.float32 for t in trace)
     np.testing.assert_array_equal(np.concatenate(trace),
                                   np.concatenate(serve_mod.make_request_trace(50, 256, 18, 3)))
-    for argv in ([], ["--arch", "gemma3-1b", "--prompt-len", "8", "--gen", "6"]):
-        with pytest.raises(NotImplementedError, match="A15"):
-            serve_mod.main(argv)
+    serve_mod.main(["--device", "cpu", "--arch", "gemma3-1b", "--prompt-len", "8", "--gen", "6"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("gemma3-1b-smoke: prefill 4x8 in ") and "ms/token/batch" in lines[0]
+    assert lines[1].startswith("sample: [") and len(ast.literal_eval(lines[1][len("sample: "):])) == 5
+    with pytest.raises(SystemExit):          # an unknown architecture
+        serve_mod.main(["--device", "cpu", "--arch", "gpt-nope"])
     with pytest.raises(SystemExit):          # no LM option is read in the FALKON mode
         serve_mod.main(["--falkon", "--device", "cpu", "--arch", "gemma3-1b"])
