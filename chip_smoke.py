@@ -221,6 +221,30 @@ result line:
                X staged again per tile, p = 8) against float32 and float64
                twins, B2 at its predict shape and B3 at its K_MM, timed for
                the kernels line.
+   train    — LM training (A15.2): (a) examples/train_lm_falkon_head.py's
+               recipe on the card: its ``make_lm(256, 4, 512)`` in fp32,
+               ``TrainConfig(3e-4, warmup 20, total 200)``, a ``Trainer`` on
+               a temporary directory (async saves every 100 steps), 200
+               steps of 8 x 128 token-stream batches: the last loss below
+               the first, the step ms, straggler events, the codec written;
+               a second ``Trainer`` on the directory resumes at step 200
+               with every leaf of the state bit-equal; the head on 8
+               batches (seed 7) of its ``_backbone`` features (gaussian
+               sigma 4, lam 1e-6, M = 512, t = 15, "cuda"): accuracy above
+               the example's 0.2, exactly 1 B3, (1 + t) x 2 + 26 = 58 B1 and
+               2 B2 launches over training + features + fit + predict (the
+               counts zeroed before training), the same fit on "torch"
+               within LM_HEAD_PRED_TOL, and B1 (d = 256 > 128), B2 and B3 at
+               its shapes for the kernels line; (b) gemma3-1b at full width
+               in its own bf16 with AdamW and remat="full": 5 steps on one
+               fixed batch of 4 x 1,024 tokens (halved while it does not
+               fit), warmup 1: loss, grad norm, step ms, tokens/s and the
+               device peak; the loss finite and falling; then one step with
+               microbatch=2 against one with microbatch=1 from the same
+               state (GEMMA_MB_LOSS_RTOL, GEMMA_MB_PARAM_REL); one profiled
+               step's device operations by kind and its idle share, and the
+               forward + backward and one AdamW update timed alone. Training
+               runs plain torch ops: no kernel of the port.
 7. times    — the full-size sweeps (SUSY: B1; MillionSongs: B1 and B4) and
                the predict-shape kernel matmul against float32 and float64
                twins; the MillionSongs fit's blocked T and A against
@@ -251,7 +275,7 @@ result line:
                ones of the rung's warmup: a served dispatch replays the
                rung's graph and launches nothing from Python; B1, B2 and
                B3 at the LM head's shapes, their launches from the head's
-               fit and predict).
+               fit and predict; likewise at the trained example LM's head).
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -506,6 +530,31 @@ LM_ACC_SE = 10
 #: solve (a 64-wide CPU head moves 4e-4 at M = 128 and 1.2e-3 at M = 256)
 LM_HEAD_PRED_TOL = 5e-2
 LM_HEAD_AGREE = 0.98              # share of test rows given the same class
+#: train (a): examples/train_lm_falkon_head.py's defaults: make_lm(d_model,
+#: layers, vocab) in fp32, TrainConfig(3e-4, warmup 20, total 200), a Trainer
+#: checkpointing every 100 steps, token_stream batches of 8 x 128, then a
+#: head on 8 batches of seed 7 (gaussian sigma 4, lam 1e-6, M 512, t 15)
+TRAIN_LM = (256, 4, 512)
+TRAIN_STEPS = 200
+TRAIN_CFG = dict(learning_rate=3e-4, warmup_steps=20, total_steps=200)
+TRAIN_STREAM = dict(vocab=512, seq_len=128, batch=8)
+TRAIN_CKPT_EVERY = 100
+TRAIN_HEAD_BATCHES = 8
+TRAIN_HEAD = dict(kernel="gaussian", kernel_params=(("sigma", 4.0),), lam=1e-6,
+                  num_centers=512, iterations=15)
+TRAIN_ACC = 0.2                   # the example's own bar (its line 99)
+TRAIN_REF_ACC = 0.654             # the reference example's reading on a CPU
+#: train (b): gemma3-1b at full width, its own bf16, AdamW and remat="full":
+#: (batch, tokens, steps) on one fixed batch, warmup 1
+GEMMA_TRAIN = (4, 1024, 5)
+#: (b): one step with microbatch=2 against one with microbatch=1 from the same
+#: state (after the 5 steps, under total_steps=100 so that the learning rate
+#: is near its peak): the losses (bf16 forwards of 2 rows and of 4 rows sum in
+#: other orders) and the parameters' difference relative to the step's change
+#: (bf16 rounding of updates near half a unit flips with the gradients' last
+#: bits)
+GEMMA_MB_LOSS_RTOL = 1e-2
+GEMMA_MB_PARAM_REL = 0.25
 SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
 SOURCE_BLOCKED = "src/repro_torch/kernels/csrc/blocked_cholesky.cu"
 DEVICE = "cuda"
@@ -542,6 +591,9 @@ SOURCES.update(fused_sweep_f16c="src/repro_torch/kernels/csrc/kernel_matvec_f16c
 SOURCES.update(fused_sweep_mb=SOURCE, kernel_matmul_rung8=SOURCE, kernel_matmul_rung256=SOURCE)
 #: B1, B2 and B3 at the LM head's shapes (d = 1152: B1's d > 128 route)
 SOURCES.update(fused_sweep_head=SOURCE, kernel_matmul_head=SOURCE, pairwise_kernel_head=SOURCE)
+#: B1, B2 and B3 at the trained example LM's head (d = 256: B1's d > 128 route)
+SOURCES.update(fused_sweep_trained=SOURCE, kernel_matmul_trained=SOURCE,
+               pairwise_kernel_trained=SOURCE)
 
 
 class SmokeFailure(RuntimeError):
@@ -3073,7 +3125,8 @@ def msd_bf16_sweep(torch, msd) -> dict:
                 shape=f"n={n} M={M} d={d} p=1 shard_m={plan.shard_m} bf16")
 
 
-def sweep_witness(torch, km, spec, X, C, u, tag: str, kernels=None):
+def sweep_witness(torch, km, spec, X, C, u, tag: str, kernels=None,
+                  twin_factor: float | None = None):
     """Sweep kernels against a float64 twin, entry by entry (gaussian).
 
     fp32 rounding in w = K^T (K u) scales with S = K^T K |u| (K >= 0), which
@@ -3081,8 +3134,11 @@ def sweep_witness(torch, km, spec, X, C, u, tag: str, kernels=None):
     S, and a per-center rounding (of ||c_j||^2, say) moves every term of
     that center together. Each |w_j - w64_j| is held to PRED_RTOL * S_j.
     ``u`` is (M,) or (M, p); ``kernels`` maps a name to a callable giving
-    that kernel's w (default: B1). Returns ({name: kernel result}, float32
-    twin result)."""
+    that kernel's w (default: B1). With ``twin_factor``, for inputs at
+    which the float32 twin itself misses that bound (features of large norm
+    against a narrow kernel: each entry's exponent cancels in fp32), a
+    kernel is held instead to within ``twin_factor`` times the twin's own
+    distance. Returns ({name: kernel result}, float32 twin result)."""
     check(spec.kind == "gaussian", f"sweep witness needs K >= 0, not {spec.kind}")
     if kernels is None:
         kernels = {"B1": lambda: km.fused_sweep(X, C, u, spec=spec)}
@@ -3101,7 +3157,11 @@ def sweep_witness(torch, km, spec, X, C, u, tag: str, kernels=None):
             f"float32 twin {rt:.4f} (bound 1); max abs err kernel "
             f"{float((w.double() - w64).abs().max()):.4e}, twin "
             f"{float((w32.double() - w64).abs().max()):.4e}")
-        check(rk <= 1.0, f"sweep {tag} {name}: off a float64 twin by {rk:.3f} x its limit")
+        bar = 1.0 if twin_factor is None else max(1.0, twin_factor * rt)
+        if bar > 1.0:
+            say(f"[sweep] {tag} {name}: the float32 twin misses the bound, so the kernel is "
+                f"held to {twin_factor:g} x the twin's ratio: {bar:.4f}")
+        check(rk <= bar, f"sweep {tag} {name}: off a float64 twin by {rk:.3f} x its limit")
     return ws, w32
 
 
@@ -3316,6 +3376,285 @@ def small_blocked_fit(torch, seed: int, n: int, d: int, M: int) -> None:
     check(rp <= BLOCKED_FIT_TOL and rb <= 2 * ri, f"forced-blocked fit M={M} disagrees")
 
 
+def make_lm(ModelConfig, d_model: int, layers: int, vocab: int):
+    """``examples/train_lm_falkon_head.py``'s ``make_lm``: a dense fp32 LM."""
+    return ModelConfig(name=f"lm-{d_model}x{layers}", family="dense", n_layers=layers,
+                       d_model=d_model, n_heads=max(4, d_model // 64),
+                       n_kv_heads=max(2, d_model // 128), d_head=64, d_ff=4 * d_model,
+                       vocab=vocab, vocab_pad_multiple=64, dtype="float32", remat="none",
+                       dense_attn_max_seq=4096)
+
+
+def phase_train(torch, args, card: str) -> list[dict]:
+    """LM training (A15.2; see the module doc, phase ``train``). Returns the
+    kernels line's rows of B1, B2 and B3 at the trained head's shapes."""
+    import tempfile
+
+    from repro_torch.checkpoint import step_dir
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import FalkonConfig, falkon_fit
+    from repro_torch.data import TokenStreamConfig, token_stream
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.models.model import _backbone
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig, state_tree
+
+    t_phase = time.perf_counter()
+    cfg = make_lm(ModelConfig, *TRAIN_LM)
+    tcfg = TrainConfig(**TRAIN_CFG)
+    n_params = cfg.param_count()
+
+    # (a) the example's recipe: train, resume, then the head on its features
+    km.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        rcfg = TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY)
+        trainer = Trainer(cfg, tcfg, rcfg, device=DEVICE)
+        stream = token_stream(TokenStreamConfig(**TRAIN_STREAM), device=DEVICE)
+        t0 = time.perf_counter()
+        hist = trainer.fit(stream, steps=TRAIN_STEPS)
+        t_fit = time.perf_counter() - t0
+        first, last = hist[0]["loss"], hist[-1]["loss"]
+        steps_ms = [1e3 * t for t in trainer.step_seconds]
+        with open(os.path.join(step_dir(ckpt_dir, TRAIN_STEPS), "MANIFEST.json")) as f:
+            manifest = json.load(f)
+        kept = sorted(os.listdir(ckpt_dir))
+        say(f"[train] (a) {card}: {cfg.name} ({n_params / 1e6:.2f}M parameters, fp32), "
+            f"{len(hist)} steps of {TRAIN_STREAM['batch']} x {TRAIN_STREAM['seq_len']} tokens: "
+            f"loss {first:.4f} -> {last:.4f} (the reference on a CPU: 6.289 -> 5.350); a step "
+            f"median {statistics.median(steps_ms):.3f} ms, min {min(steps_ms):.3f}, max "
+            f"{max(steps_ms):.3f} (synchronised; the first {steps_ms[0]:.3f}); fit {t_fit:.3f} s "
+            f"with the token stream and 2 async saves; straggler events "
+            f"{trainer.straggler_events}; checkpoints kept {kept}, codec "
+            f"{manifest['codec']!r}, {len(manifest['leaves'])} leaves")
+        check(len(hist) == TRAIN_STEPS and all(np.isfinite(h["loss"]) for h in hist)
+              and last < first, f"the example's LM did not learn ({first:.4f} -> {last:.4f})")
+        check(manifest["step"] == TRAIN_STEPS and kept == [os.path.basename(step_dir(
+            ckpt_dir, s)) for s in (TRAIN_CKPT_EVERY, TRAIN_STEPS)], "the checkpoints are off")
+        again = Trainer(cfg, tcfg, rcfg, device=DEVICE)
+        mine = tree_leaves(state_tree(trainer.state, cfg))
+        theirs = tree_leaves(state_tree(again.state, cfg))
+        bit_equal = len(mine) == len(theirs) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(mine, theirs))
+        say(f"[train] (a) a second Trainer on the same directory resumed at step "
+            f"{int(again.state.step)}: all {len(mine)} leaves of the state (parameters, AdamW "
+            f"moments, step) bit-equal to the first's: {bit_equal}")
+        check(int(again.state.step) == TRAIN_STEPS and bit_equal,
+              "the resumed Trainer differs from the one that saved")
+        model = trainer.state.params
+        del again, trainer
+
+    stream = token_stream(TokenStreamConfig(**TRAIN_STREAM), seed=7, device=DEVICE)
+    feats, labels = [], []
+    with torch.no_grad():
+        for _ in range(TRAIN_HEAD_BATCHES):
+            b = next(stream)
+            feats.append(_backbone(model, cfg, {"tokens": b["tokens"]}).reshape(-1, cfg.d_model))
+            labels.append(b["tokens"].reshape(-1).long() % 8)
+    X, ylab = torch.cat(feats), torch.cat(labels)
+    n, d = X.shape
+    ntr = int(0.8 * n)
+    Xtr, Xte, Y = X[:ntr], X[ntr:], torch.nn.functional.one_hot(ylab, 8).float()
+    check(bool(torch.isfinite(X).all()) and X.dtype == torch.float32,
+          "the trained LM's features are malformed")
+    t0 = time.perf_counter()
+    est, state = falkon_fit(args.seed, Xtr, Y[:ntr],
+                            FalkonConfig(ops_impl="cuda", device=DEVICE, **TRAIN_HEAD))
+    pred = est.predict(Xte)
+    torch.cuda.synchronize()
+    t_head = time.perf_counter() - t0
+    counts = km.launch_counts()
+    acc = float((pred.argmax(-1) == ylab[ntr:]).float().mean())
+    t_it, p = TRAIN_HEAD["iterations"], Y.shape[1]
+    groups = -(-p // km.MAX_P)
+    want = {"pairwise_kernel": 1, "fused_sweep": (1 + t_it) * groups + 26,
+            "kernel_matmul": groups}
+    say(f"[train] (a) {card}: head on the trained features, n={ntr} M="
+        f"{TRAIN_HEAD['num_centers']} d={d} p={p} sigma 4 lam {TRAIN_HEAD['lam']:g} t={t_it}: "
+        f"fit + predict {t_head:.3f} s; accuracy {acc:.4f} on {n - ntr} rows (the example's bar "
+        f"{TRAIN_ACC}; the reference on a CPU read {TRAIN_REF_ACC}; chance 0.125); cond(W) "
+        f"{float(state.cond_estimate):.2f}; launches on the main path (train, features, fit, "
+        f"predict) {counts} (want {want})")
+    check(acc > TRAIN_ACC, f"the trained LM's head reads {acc:.4f}, not above {TRAIN_ACC}")
+    for name, v in want.items():
+        check(counts[name] == v, f"{name}: {counts[name]} launches on the train path, want {v}")
+    check(counts["sharded_sweep"] == 0, "the trained head's sweeps left B1")
+    est_t, _ = falkon_fit(args.seed, Xtr, Y[:ntr],
+                          FalkonConfig(ops_impl="torch", device=DEVICE, **TRAIN_HEAD))
+    pred_t = est_t.predict(Xte)
+    same = torch.equal(est_t.centers, est.centers)
+    prel = float(torch.linalg.norm((pred_t - pred).double()) / torch.linalg.norm(pred.double()))
+    agree = float((pred_t.argmax(-1) == pred.argmax(-1)).float().mean())
+    acc_t = float((pred_t.argmax(-1) == ylab[ntr:]).float().mean())
+    say(f"[train] (a) the same head on the \"torch\" backend: same centers {same}; predictions "
+        f"vs \"cuda\" normwise {prel:.3e} (bound {LM_HEAD_PRED_TOL:g}), same class on "
+        f"{agree:.4f} of rows (bound {LM_HEAD_AGREE}), accuracy {acc_t:.4f}")
+    check(same and prel <= LM_HEAD_PRED_TOL and agree >= LM_HEAD_AGREE,
+          "the trained head's cuda fit disagrees with its plain fit")
+    norms = Xtr.square().sum(1)
+    say(f"[train] (a) the trained features' squared norms: median {float(norms.median()):.2f}, "
+        f"max {float(norms.max()):.2f}, against 2 sigma^2 = 32")
+    rows = head_rows(torch, km, est, Xtr, Xte, counts, "trained", "[train]",
+                     "the trained LM's head", card, twin_factor=AGREE_FACTOR)
+    del X, Xtr, Xte, est, est_t, pred, pred_t, model
+    torch.cuda.empty_cache()
+
+    gemma_train(torch, args, card)
+    say(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def gemma_train(torch, args, card: str) -> None:
+    """(b) gemma3-1b at full width: bf16 AdamW steps under remat on one
+    fixed batch, then one step with microbatch=2 against microbatch=1."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import _tree_map as tree_map
+    from repro_torch.models import LeafGroup, loss_fn, param_tree
+    from repro_torch.optim import make_optimizer, tree_leaves
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.optimizer == "adamw" and cfg.remat == "full",
+          f"{cfg.name} does not train in bf16 with AdamW under remat")
+    B, S, n_steps = GEMMA_TRAIN
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=n_steps)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    while True:
+        try:
+            g = torch.Generator(device=DEVICE).manual_seed(args.seed)
+            state = init_train_state(g, cfg, tcfg)
+            toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=g, device=DEVICE,
+                                 dtype=torch.int32)
+            batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+            step = make_train_step(cfg, tcfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            check(B > 1, f"{cfg.name} does not train at batch 1 x {S}")
+            say(f"[train] (b) batch {B} x {S} does not fit; halving it")
+            state = batch = met = None
+            torch.cuda.empty_cache()
+            B //= 2
+    times, hist = [time.perf_counter() - t0], [met]
+    for _ in range(n_steps - 1):
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        hist.append(met)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    n_params = sum(p.numel() for p in state.params.parameters())
+    opt_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state.opt_state))
+    loss = [float(m["loss"]) for m in hist]
+    gn = [float(m["grad_norm"]) for m in hist]
+    steady = statistics.median(times[1:])
+    say(f"[train] (b) {card}: {cfg.name} full width ({n_params} parameters, bf16; AdamW "
+        f"moments {opt_bytes / 1e9:.3f} GB fp32), remat {cfg.remat!r}, batch {B} x {S} tokens, "
+        f"{n_steps} steps on one fixed batch (warmup 1): loss {[round(v, 4) for v in loss]}; "
+        f"grad norm {[round(v, 4) for v in gn]}; step ms {[round(1e3 * t, 3) for t in times]} "
+        f"(the first with cuBLAS's warm-up); after the first: median {1e3 * steady:.3f} ms, "
+        f"{B * S / steady:.1f} tokens/s; device peak {peak:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held before it")
+    check(all(np.isfinite(loss)) and loss[-1] < loss[0],
+          f"{cfg.name}'s loss does not fall on its fixed batch: {loss}")
+
+    # one step with microbatch=2 against microbatch=1, from the same state
+    cmp = dataclasses.replace(tcfg, total_steps=100)
+    params = list(state.params.parameters())
+    before = [p.detach().clone() for p in params]
+    opt_before = [x.clone() for x in tree_leaves(state.opt_state)]
+    step1 = make_train_step(cfg, cmp)
+    state, m1 = step1(state, batch)
+    after1 = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p, b in zip(params, before):
+            p.copy_(b)
+        for x, b in zip(tree_leaves(state.opt_state), opt_before):
+            x.copy_(b)
+    state = state._replace(step=state.step - 1)
+    del opt_before
+    step2 = make_train_step(cfg, dataclasses.replace(cmp, microbatch=2))
+    state, m2 = step2(state, batch)
+    torch.cuda.synchronize()
+    num = sum(float(torch.sum((p.detach().float() - a.float()) ** 2))
+              for p, a in zip(params, after1))
+    den = sum(float(torch.sum((a.float() - b.float()) ** 2)) for a, b in zip(after1, before))
+    rel = (num / den) ** 0.5
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    lrel = abs(l2 - l1) / abs(l1)
+    say(f"[train] (b) one step from step {n_steps} (lr {float(m1['lr']):.4e}), microbatch=2 "
+        f"against microbatch=1 on the same batch: loss {l2:.6f} vs {l1:.6f} (relative "
+        f"{lrel:.3e}, bound {GEMMA_MB_LOSS_RTOL:g}); grad norm {float(m2['grad_norm']):.4f} vs "
+        f"{float(m1['grad_norm']):.4f}; parameters' difference / the step's change, normwise "
+        f"{rel:.4f} (bound {GEMMA_MB_PARAM_REL:g})")
+    check(np.isfinite(l2) and lrel <= GEMMA_MB_LOSS_RTOL and rel <= GEMMA_MB_PARAM_REL,
+          "microbatch=2 disagrees with microbatch=1")
+    del before, after1
+
+    # where a step's time goes on the device: one profiled step (after a
+    # warm-up step), its operations by kind and the device's idle share
+    held_state = [state]
+
+    def one_step():
+        held_state[0], _ = step(held_state[0], batch)
+
+    ops = device_ops(torch, f"{cfg.name} train step", one_step)
+    check(bool(ops), f"the profiler saw no device operation of {cfg.name}'s train step")
+    busy = sum(us for _, _, us in ops) / 1e3
+    span = (max(t + us for _, t, us in ops) - min(t for _, t, _ in ops)) / 1e3
+    kinds: dict[str, float] = {}
+    names: dict[str, list] = {}
+    for name, _, us in ops:
+        names.setdefault(name, []).append(us)
+        low = name.lower()
+        kind = ("matmul" if any(k in low for k in ("gemm", "cutlass", "xmma", "sm90_", "gemv",
+                                                   "nvjet"))
+                else "attention" if any(k in low for k in ("flash", "fmha", "attention"))
+                else "reduction" if "reduce" in low
+                else "elementwise" if any(k in low for k in ("elementwise", "vectorized",
+                                                              "unrolled"))
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+    top = sorted(names.items(), key=lambda kv: -sum(kv[1]))[:8]
+    say(f"[train] (b) {card}: one profiled step: {len(ops)} device operations, busy "
+        f"{busy:.3f} ms of a {span:.3f} ms span (idle {1 - busy / span:.4f}); by kind (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+        + "; the largest: " + "; ".join(f"{n[:60]} x{len(us)} {sum(us) / 1e3:.3f} ms"
+                                         for n, us in top))
+
+    # the step's parts, each synchronised: the forward and backward alone
+    # (loss_fn and autograd.grad), then one optimizer update alone; the rest
+    # of a step is the gradients' stacking into the reference's leaves and
+    # the clip
+    state = held_state[0]
+    model = state.params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(model, cfg, batch)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    t_fb = time.perf_counter() - t0
+    del loss, grads
+    tree = param_tree(model, cfg)
+    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype, device=p.device), tree,
+                     is_leaf=lambda x: isinstance(x, (torch.Tensor, LeafGroup)))
+    opt, lr = make_optimizer(cfg.optimizer), torch.tensor(1e-5, device=DEVICE)
+    opt.update(zeros, state.opt_state, tree, lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.update(zeros, state.opt_state, tree, lr)
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    say(f"[train] (b) {card}: a step's parts: forward + backward {1e3 * t_fb:.3f} ms, one "
+        f"AdamW update {1e3 * t_opt:.3f} ms, the rest (stacking, clip) "
+        f"{1e3 * (steady - t_fb - t_opt):.3f} ms of the {1e3 * steady:.3f} ms median step")
+    del state, held_state, batch, params, model, tree, zeros
+    torch.cuda.empty_cache()
+
+
 def lm_close(torch, got, ref, rtol: float, atol: float) -> tuple[float, float]:
     """(max |got - ref|, max |got - ref| / (atol + rtol |ref|)): the second
     is <= 1 where ``allclose`` holds."""
@@ -3495,47 +3834,81 @@ def phase_lm(torch, args, card: str) -> list[dict]:
           "the head's cuda fit disagrees with its plain fit")
 
     # the kernels line's rows: B1, B2, B3 at the head's shapes
-    rows = []
-    C, spec, M = est.centers, est.kernel.spec, est.centers.shape[0]
-    U = torch.randn(M, p, generator=torch.Generator(device=DEVICE).manual_seed(31),
-                    device=DEVICE)
-    sweep = lambda: km.fused_sweep(Xtr, C, U, spec=spec)
-    ws, ref = sweep_witness(torch, km, spec, Xtr, C, U,
-                            f"the LM head n={ntr} M={M} d={d} p={p}", {"B1": sweep})
-    abs_err, ratio = close_err(ws["B1"], ref)
-    again = torch.equal(ws["B1"], sweep())
-    check(ratio <= 1.0 and again, "B1 at the head's shape is off its twin or not deterministic")
-    ms = time_cuda(torch, sweep, 5)
-    plain = time_cuda(torch, lambda: km.fused_sweep_plain(Xtr, C, U, None, spec=spec), 3)
-    b, by = bound(ntr * M * (2 * d + 10 + 4 * p), 4 * (ntr * d + M * d + 2 * M * p))
-    say(f"[lm] {card}: B1 at the head n={ntr} M={M} d={d} p={p} ({groups} launches): kernel "
-        f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b:.4f} ms ({by}); vs twin max abs err "
-        f"{abs_err:.3e} (ratio {ratio:.4f}); two runs bit-equal {again}")
-    rows.append(dict(name="fused_sweep_head", base="fused_sweep", ms=ms, plain_ms=plain,
-                     bound_ms=b, bound_by=by, max_abs_err=abs_err,
-                     launches=counts["fused_sweep"], shape=f"n={ntr} M={M} d={d} p={p}"))
-    alpha, m = est.alpha, Xte.shape[0]
-    mm = lambda: km.kernel_matmul(Xte, C, alpha, spec=spec)
-    out = mm().double()
-    S_ = float(km.kernel_matmul_plain(Xte, C, alpha.abs(), spec=spec).max())
-    abs_err = float((out - km.kernel_matmul_plain(Xte, C, alpha, spec=spec).double()).abs().max())
-    check(abs_err <= PRED_RTOL * S_ and torch.equal(out, mm().double()),
-          f"B2 at the head's predict shape off its twin ({abs_err:.3e}) or not deterministic")
-    ms = time_cuda(torch, mm, 10)
-    plain = time_cuda(torch, lambda: km.kernel_matmul_plain(Xte, C, alpha, spec=spec), 3)
-    b, by = bound(m * M * (2 * d + 10 + 2 * p), 4 * (m * d + M * d + M * p + m * p))
-    say(f"[lm] {card}: B2 at the head's predict m={m} n={M} d={d} p={p}: kernel {ms:.4f} ms, "
-        f"twin {plain:.4f} ms, bound {b:.4f} ms ({by}); max abs err {abs_err:.3e} (limit "
-        f"{PRED_RTOL:g} x {S_:.4e})")
-    rows.append(dict(name="kernel_matmul_head", base="kernel_matmul", ms=ms, plain_ms=plain,
-                     bound_ms=b, bound_by=by, max_abs_err=abs_err,
-                     launches=counts["kernel_matmul"], shape=f"m={m} n={M} d={d} p={p}"))
-    row = pairwise_times(torch, km, C, C, spec, "the LM head's K_MM", plain=True)
-    rows.append(dict(row, name="pairwise_kernel_head", base="pairwise_kernel",
-                     launches=counts["pairwise_kernel"]))
+    rows = head_rows(torch, km, est, Xtr, Xte, counts, "head", "[lm]", "the LM head", card)
     del X, Xtr, Xte, est, est_t, pred, pred_t
     torch.cuda.empty_cache()
     say(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def head_rows(torch, km, est, Xtr, Xte, counts: dict, suffix: str, tag: str, what: str,
+              card: str, twin_factor: float | None = None) -> list[dict]:
+    """The kernels line's rows of a FALKON head's kernels at its shapes: B1
+    at its sweep (n x M, p columns) against float32 and float64 twins and
+    bit-equal over two runs, B2 at its predict against its twin, B3 at its
+    K_MM (``pairwise_times``), each timed beside its twin and bound; the
+    rows are named ``<kernel>_<suffix>`` and carry ``counts``' launches.
+    With ``twin_factor`` (features of large norm, whose entries cancel in
+    fp32) B1 is held as ``sweep_witness`` says and B2 against float64 to
+    the fp32 error model below, which its float32 twin must meet too."""
+    n, d = Xtr.shape
+    C, spec, M = est.centers, est.kernel.spec, est.centers.shape[0]
+    alpha, m = est.alpha, Xte.shape[0]
+    p = alpha.shape[1]
+    groups = -(-p // km.MAX_P)
+    rows = []
+    U = torch.randn(M, p, generator=torch.Generator(device=DEVICE).manual_seed(31),
+                    device=DEVICE)
+    sweep = lambda: km.fused_sweep(Xtr, C, U, spec=spec)
+    ws, ref = sweep_witness(torch, km, spec, Xtr, C, U, f"{what} n={n} M={M} d={d} p={p}",
+                            {"B1": sweep}, twin_factor=twin_factor)
+    abs_err, ratio = close_err(ws["B1"], ref)
+    again = torch.equal(ws["B1"], sweep())
+    check(ratio <= 1.0 and again, f"B1 at {what}'s shape is off its twin or not deterministic")
+    ms = time_cuda(torch, sweep, 5)
+    plain = time_cuda(torch, lambda: km.fused_sweep_plain(Xtr, C, U, None, spec=spec), 3)
+    b, by = bound(n * M * (2 * d + 10 + 4 * p), 4 * (n * d + M * d + 2 * M * p))
+    say(f"{tag} {card}: B1 at {what} n={n} M={M} d={d} p={p} ({groups} launches): kernel "
+        f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b:.4f} ms ({by}); vs twin max abs err "
+        f"{abs_err:.3e} (ratio {ratio:.4f}); two runs bit-equal {again}")
+    rows.append(dict(name=f"fused_sweep_{suffix}", base="fused_sweep", ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, max_abs_err=abs_err,
+                     launches=counts["fused_sweep"], shape=f"n={n} M={M} d={d} p={p}"))
+    mm = lambda: km.kernel_matmul(Xte, C, alpha, spec=spec)
+    out = mm().double()
+    S_ = float(km.kernel_matmul_plain(Xte, C, alpha.abs(), spec=spec).max())
+    ref32 = km.kernel_matmul_plain(Xte, C, alpha, spec=spec).double()
+    abs_err = float((out - ref32).abs().max())
+    limit = PRED_RTOL * S_
+    if twin_factor is not None:
+        # inputs of large norm: each entry's squared distance cancels in fp32,
+        # with an error ~ u sqrt(d) (|a|^2 + |c|^2) (d roundings of random
+        # sign), u = 2^-24, so an entry's relative error is ~ u sqrt(d) kappa,
+        # kappa = (max |a|^2 + max |c|^2) / (2 sigma^2); both fp32 versions are
+        # held to that against float64
+        sigma = dict(spec.params)["sigma"]
+        kappa = float(Xte.square().sum(1).max() + C.square().sum(1).max()) / (2 * sigma**2)
+        limit = 2.0**-24 * d**0.5 * max(kappa, 1.0) * S_
+        ref64 = km.kernel_matmul_plain(Xte.double(), C.double(), alpha.double(), spec=spec)
+        rk, rt = (float((v - ref64).abs().max()) / limit for v in (out, ref32))
+        say(f"{tag} B2 at {what}'s predict vs float64, over u sqrt(d) kappa S = {limit:.4e} "
+            f"(kappa {kappa:.2f}): kernel {rk:.4f}, float32 twin {rt:.4f} (bound 1)")
+        check(rt <= 1.0, f"B2's float32 twin at {what}'s predict exceeds the error model")
+        abs_err = float((out - ref64).abs().max())
+    check(abs_err <= limit and torch.equal(out, mm().double()),
+          f"B2 at {what}'s predict shape off its twin ({abs_err:.3e}) or not deterministic")
+    ms = time_cuda(torch, mm, 10)
+    plain = time_cuda(torch, lambda: km.kernel_matmul_plain(Xte, C, alpha, spec=spec), 3)
+    b, by = bound(m * M * (2 * d + 10 + 2 * p), 4 * (m * d + M * d + M * p + m * p))
+    say(f"{tag} {card}: B2 at {what}'s predict m={m} n={M} d={d} p={p}: kernel {ms:.4f} ms, "
+        f"twin {plain:.4f} ms, bound {b:.4f} ms ({by}); max abs err {abs_err:.3e} (limit "
+        f"{limit:.4e})")
+    rows.append(dict(name=f"kernel_matmul_{suffix}", base="kernel_matmul", ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, max_abs_err=abs_err,
+                     launches=counts["kernel_matmul"], shape=f"m={m} n={M} d={d} p={p}"))
+    row = pairwise_times(torch, km, C, C, spec, f"{what}'s K_MM", plain=True)
+    rows.append(dict(row, name=f"pairwise_kernel_{suffix}", base="pairwise_kernel",
+                     launches=counts["pairwise_kernel"]))
     return rows
 
 
@@ -3858,20 +4231,18 @@ def matmul_transposed(torch, km, X, C, spec, shard: int) -> None:
         "a sweep")
 
 
-def breakdown(torch, tag: str, fn, each: bool = False) -> None:
-    """One call's device operations, by name, with their summed device time
-    (``torch.profiler``): a blocked schedule's launches; ``each`` also lists
-    every launch's time in launch order. The profiler has returned no
-    device operation for a whole call (B3 at MillionSongs' K_MM; B2 at the
-    predict shape) and dropped a call's first one at times: after minutes
-    of float64 work on the card its device timestamps stood 0.5 to 2 s off
-    its window on the host's clock, and it drops what falls outside (a
-    probe on the H100: 2 of 12 profiles of B2 and B3 kept at pads up to
-    0.5 s, 12 of 12 at 2 s). So each profile records one call after a
-    warm-up step of its own (a ``schedule`` of one warm-up and one active
-    step), the active step idles PROFILE_PAD seconds before and after the
-    call, and an empty profile is taken again with the pad doubled, up to
-    five times in all."""
+def device_ops(torch, tag: str, fn) -> list[tuple[str, float, float]]:
+    """One call's device operations (``torch.profiler``) as (name, start us,
+    elapsed us), in launch order. The profiler has returned no device
+    operation for a whole call (B3 at MillionSongs' K_MM; B2 at the predict
+    shape) and dropped a call's first one at times: after minutes of
+    float64 work on the card its device timestamps stood 0.5 to 2 s off its
+    window on the host's clock, and it drops what falls outside (a probe on
+    the H100: 2 of 12 profiles of B2 and B3 kept at pads up to 0.5 s, 12 of
+    12 at 2 s). So each profile records one call after a warm-up step of
+    its own (a ``schedule`` of one warm-up and one active step), the active
+    step idles PROFILE_PAD seconds before and after the call, and an empty
+    profile is taken again with the pad doubled, up to five times in all."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
@@ -3894,10 +4265,17 @@ def breakdown(torch, tag: str, fn, each: bool = False) -> None:
                   and not e.name.startswith("ProfilerStep")]
         if events:
             break
+    return [(e.name.split("(")[0].removeprefix("void "), e.time_range.start,
+             e.time_range.elapsed_us()) for e in sorted(events, key=lambda e: e.time_range.start)]
+
+
+def breakdown(torch, tag: str, fn, each: bool = False) -> None:
+    """One call's device operations, by name, with their summed device time
+    (``device_ops``): a blocked schedule's launches; ``each`` also lists
+    every launch's time in launch order."""
     ops: dict[str, list] = {}
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        name = e.name.split("(")[0].removeprefix("void ")
-        ops.setdefault(name, []).append(e.time_range.elapsed_us())
+    for name, _, us in device_ops(torch, tag, fn):
+        ops.setdefault(name, []).append(us)
     total = sum(len(us) for us in ops.values())
     say(f"[times] {tag}: {total} device operations in one call: "
         + ", ".join(f"{name} {len(us)} ({sum(us):.1f} us)" for name, us in ops.items()))
@@ -4025,6 +4403,8 @@ def main(argv=None) -> int:
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the MillionSongs phase")
     bf16_rows += phase_lm(torch, args, card)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the LM phase")
+    bf16_rows += phase_train(torch, args, card)
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the training phase")
     kernels = phase_times(torch, main_res, msd_res, bf16_rows, path_res)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, {build_s:.1f} s of it the build")
     say(f"card: {card}")

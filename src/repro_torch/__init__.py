@@ -13,8 +13,11 @@ names follow ``repro``'s, so each module's counterpart is easy to find:
   and the LM token stream;
 * ``repro_torch.configs``, ``repro_torch.models`` — the ten LM
   architectures' configs and models (forward, loss, prefill, decode);
+* ``repro_torch.optim``, ``repro_torch.checkpoint``, ``repro_torch.train``
+  — LM training: the optimizers and schedule, per-leaf checkpoints, the
+  train step and the ``Trainer``;
 * ``repro_torch.serve``, ``repro_torch.launch`` — the coalescing predict
-  server, the serving launcher (FALKON and LM modes) and the mesh helper;
+  server, the serving and training launchers and the mesh helper;
 * ``repro_torch.convert`` — state carried across from ``repro`` as numpy.
 
 Importing the package compiles nothing: the kernels build at first launch.

@@ -4,8 +4,9 @@ The JAX package and this port cannot share random draws, so parity is held
 by handing one package's state to the other. These functions take plain
 numpy arrays keyed by the JAX package's field names — the caller converts
 (``np.asarray``) on its side — and build the port's objects from them.
-An LM's parameters and decode caches come as the reference's trees, with
-its stacked periods (``model_params_from_numpy``, ``cache_from_numpy``).
+An LM's parameters, decode caches and train state come as the
+reference's trees, with its stacked periods (``model_params_from_numpy``,
+``cache_from_numpy``, ``train_state_from_numpy``).
 """
 from __future__ import annotations
 
@@ -187,3 +188,38 @@ def cache_from_numpy(tree: Mapping, cfg, *, device: str = "cuda") -> dict:
     layers = _np_map(lambda a: _tensor(a, dev), layer_trees(tree, cfg))
     return {"pos": _tensor(tree["pos"], dev, torch.int32),
             "layers": layers}
+
+
+def train_state_from_numpy(tree, cfg, tcfg, *, device: str = "cuda"):
+    """A port ``TrainState`` from the reference's (a ``TrainState`` or a
+    dict of its fields, numpy leaves): the parameters through
+    :func:`model_params_from_numpy` (so :func:`layer_trees`), the
+    optimizer state and the residuals at the reference's leaf shapes (the
+    port's, ``repro_torch.train.steps``), each leaf checked against the
+    port's fresh state and keeping its dtype, the step as int32. On
+    ``device`` (the card unless the caller asks for the CPU; without a card
+    the default raises)."""
+    from repro_torch.train.steps import TrainState, train_state_structs
+
+    dev = resolve_device(device)
+    d = tree._asdict() if hasattr(tree, "_asdict") else dict(tree)
+    like = train_state_structs(cfg, tcfg)
+
+    def leaves(sub, ref, what):
+        if isinstance(ref, Mapping):
+            if sorted(sub) != sorted(ref):
+                raise ValueError(f"{what}: keys {sorted(sub)}, port {sorted(ref)}")
+            return {k: leaves(sub[k], ref[k], f"{what}.{k}") for k in ref}
+        if isinstance(ref, (list, tuple)):
+            if len(sub) != len(ref):
+                raise ValueError(f"{what}: {len(sub)} entries, port {len(ref)}")
+            return [leaves(a, b, f"{what}[{i}]") for i, (a, b) in enumerate(zip(sub, ref))]
+        value = np.asarray(sub)
+        if tuple(value.shape) != tuple(ref.shape):
+            raise ValueError(f"{what}: reference shape {value.shape}, port {tuple(ref.shape)}")
+        return _tensor(value, dev)
+
+    return TrainState(params=model_params_from_numpy(d["params"], cfg, device=device),
+                      opt_state=leaves(d["opt_state"], like.opt_state, "opt_state"),
+                      residuals=leaves(d["residuals"], like.residuals, "residuals"),
+                      step=_tensor(d["step"], dev, torch.int32))

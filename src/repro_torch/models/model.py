@@ -5,10 +5,18 @@ parameters of the smallest repeating *period* of the layer pattern and
 scans over them; the port keeps one module per layer in a plain
 ``ModuleList`` in pattern order and loops over it: the reference's period
 slot ``i`` at repeat ``r`` is layer ``r * P + i``, then the tail
-(``convert.model_params_from_numpy`` maps one onto the other). The
-reference's sharding annotations, rematerialization and sqrt-checkpointed
-scans change no value and are left out; the annotations return with the
-sharding rules (ROADMAP.md item A15.3).
+(``convert.model_params_from_numpy`` maps one onto the other;
+``param_tree`` gives the model's parameters back in the reference's tree,
+each period slot a ``LeafGroup`` of its repeats, for the optimizers and
+checkpoints). With ``cfg.remat == "full"`` a differentiated forward runs
+each layer and each cross-entropy chunk under
+``torch.utils.checkpoint.checkpoint`` (the reference's ``jax.checkpoint``
+of its period body, tail layers and CE chunks): their activations are
+recomputed in the backward pass, and a chunk's logits live only inside it.
+The reference's sharding annotations and its two-level (sqrt)
+checkpointing of deep period scans (``n_per >= 12``) change no value and
+are left out; both return with the sharding rules (ROADMAP.md item
+A15.3), which bring the deep configs that reach the sqrt checkpointing.
 
 The public functions keep the reference's names and signatures with the
 model in place of the parameter tree: ``forward(model, cfg, batch)``,
@@ -23,11 +31,13 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, torch_dtype
 from . import layers as L
 from . import ssm as S
-from .params import PD, ParamModule, init_module, init_params, param_shape_structs
+from .params import (PD, LeafGroup, ParamModule, init_module, init_params,
+                     param_shape_structs)
 
 Tensor = torch.Tensor
 
@@ -154,14 +164,58 @@ class Model(ParamModule):
 def model_params(generator: torch.Generator, cfg: ModelConfig, *,
                  device: str | torch.device | None = None) -> Model:
     """A ``Model`` at ``cfg.dtype`` with random weights from ``generator``,
-    on the generator's device unless ``device`` says otherwise."""
+    on the generator's device unless ``device`` says otherwise. The draws
+    are torch's, at the reference's scales: a period layer's default scale
+    is that of the reference's stacked leaf, whose fan-in counts the
+    repeats (1/2 the per-layer scale at 4 repeats)."""
     device = generator.device if device is None else torch.device(device)
-    return init_module(Model(cfg, device=device), generator)
+    model = Model(cfg, device=device)
+    period, n_per, _ = split_periods(cfg.layer_pattern)
+    for block in model.layers[:n_per * len(period)]:
+        for sub in block.modules():
+            if isinstance(sub, ParamModule):
+                sub._stack = n_per
+    return init_module(model, generator)
 
 
 def model_param_structs(cfg: ModelConfig) -> dict:
     """The parameter tree as ``meta`` tensors at ``cfg.dtype``: no allocation."""
     return param_shape_structs(model_pd(cfg), torch_dtype(cfg.dtype))
+
+
+def _named_tree(module: nn.Module, leaf) -> dict:
+    """The module's parameters as a nested dict: ``leaf(name)`` for each
+    parameter, under its dotted name's parts."""
+    out: dict = {}
+    for name, _ in module.named_parameters():
+        node, parts = out, name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf(name)
+    return out
+
+
+def param_tree(model: Model, cfg: ModelConfig) -> dict:
+    """The model's parameters in the reference's tree: the top-level leaves
+    (``embed``, ``vision_proj``, ``ln_f``, ``lm_head``), ``period`` (one
+    tree a period slot, each leaf a ``LeafGroup`` of that slot's parameter
+    in every repeat, repeat order) and ``tail`` (one tree a tail layer).
+    The leaves are the model's own ``Parameter``s, not copies."""
+    period, n_per, tail = split_periods(cfg.layer_pattern)
+    P = len(period)
+    params = dict(model.named_parameters())
+
+    def slot(i: int) -> dict:
+        return _named_tree(model.layers[i], lambda name: LeafGroup(
+            params[f"layers.{r * P + i}.{name}"] for r in range(n_per)))
+
+    def tail_layer(i: int) -> dict:
+        return _named_tree(model.layers[i], lambda name: params[f"layers.{i}.{name}"])
+
+    tree = dict(model.named_parameters(recurse=False))
+    tree["period"] = [slot(i) for i in range(P)]
+    tree["tail"] = [tail_layer(n_per * P + j) for j in range(len(tail))]
+    return tree
 
 
 def model_param_pspecs(cfg: ModelConfig, rules):
@@ -188,14 +242,25 @@ def _vision_kv_src(model: Model, cfg: ModelConfig, batch: dict) -> Tensor | None
 def _stack_apply(model: Model, cfg: ModelConfig, x: Tensor, *, positions, vision_kv=None,
                  caches=None, pos_scalar=None):
     """Run the layers in order. caches: None or one cache a layer. Returns
-    (x, new caches or None)."""
+    (x, new caches or None). Under ``remat == "full"`` a differentiated
+    pass without caches checkpoints each layer."""
     new_caches = None if caches is None else []
+    remat = _remat(cfg) and caches is None
     for i, (block, spec) in enumerate(zip(model.layers, cfg.layer_pattern)):
-        x, nc = block(x, cfg, spec, positions=positions, vision_kv=vision_kv,
-                      cache=None if caches is None else caches[i], pos_scalar=pos_scalar)
+        if remat:
+            x, nc = checkpoint(block, x, cfg, spec, positions=positions, vision_kv=vision_kv,
+                               use_reentrant=False)
+        else:
+            x, nc = block(x, cfg, spec, positions=positions, vision_kv=vision_kv,
+                          cache=None if caches is None else caches[i], pos_scalar=pos_scalar)
         if caches is not None:
             new_caches.append(nc)
     return x, new_caches
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Recompute in the backward pass: ``remat == "full"`` and autograd on."""
+    return cfg.remat == "full" and torch.is_grad_enabled()
 
 
 def _backbone(model: Model, cfg: ModelConfig, batch: dict) -> Tensor:
@@ -229,7 +294,8 @@ def _ce_chunk(x_c: Tensor, labels_c: Tensor, lm_head: Tensor, cfg: ModelConfig) 
 
 def loss_fn(model: Model, cfg: ModelConfig, batch: dict, *, ce_chunk: int = 512):
     """Mean next-token CE over the batch -> (loss, {"loss", "ppl_proxy"}).
-    Differentiable; training with it is ROADMAP.md item A15.2."""
+    Differentiable; under ``remat == "full"`` each chunk's logits are
+    recomputed in the backward pass."""
     x = _backbone(model, cfg, batch)                                 # (B,S,D)
     labels = batch["labels"]
     B, S_, _ = x.shape
@@ -237,8 +303,11 @@ def loss_fn(model: Model, cfg: ModelConfig, batch: dict, *, ce_chunk: int = 512)
     if S_ % Sc:
         Sc = S_                                                      # odd sizes: one chunk
     total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _remat(cfg)
     for c in range(0, S_, Sc):
-        total = total + _ce_chunk(x[:, c:c + Sc], labels[:, c:c + Sc], model.lm_head, cfg)
+        args = (x[:, c:c + Sc], labels[:, c:c + Sc], model.lm_head, cfg)
+        total = total + (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
+                         else _ce_chunk(*args))
     loss = total / (B * S_)
     return loss, {"loss": loss, "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
 

@@ -39,7 +39,12 @@ def tree_map(fn, tree):
     raise TypeError(f"not a descriptor tree: {type(tree).__name__}")
 
 
-def _init_leaf(pd: PD, generator: torch.Generator | None, dtype, device) -> torch.Tensor:
+def _init_leaf(pd: PD, generator: torch.Generator | None, dtype, device,
+               stack: int | None = None) -> torch.Tensor:
+    """One leaf's initial value. ``stack``: the leaf is one repeat of a
+    leaf the reference stacks ``stack`` times, and the default scale is the
+    stacked leaf's (its fan-in counts the repeats), as the reference draws
+    it."""
     if pd.init == "zeros":
         return torch.zeros(pd.shape, dtype=dtype, device=device)
     if pd.init == "ones":
@@ -47,7 +52,8 @@ def _init_leaf(pd: PD, generator: torch.Generator | None, dtype, device) -> torc
     if pd.init == "ssm_A":           # A_log in [log 1, log 16]
         u = torch.rand(pd.shape, generator=generator, device=device, dtype=torch.float32)
         return torch.log(1.0 + 15.0 * u).to(dtype)
-    fan_in = pd.shape[0] if len(pd.shape) == 1 else math.prod(pd.shape[:-1])
+    shape = pd.shape if stack is None else (stack,) + tuple(pd.shape)
+    fan_in = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
     scale = pd.scale if pd.scale is not None else fan_in ** -0.5
     if pd.init == "embed":
         scale = 1.0 if pd.scale is None else pd.scale
@@ -84,6 +90,62 @@ def stack_pds(tree, n: int, axis_name: str | None = "fsdp") -> dict:
                     tree)
 
 
+class LeafGroup:
+    """One stacked leaf of the reference's trees, kept as separate tensors.
+
+    The reference stacks the parameters of all repeats of one period slot
+    into a leaf of shape (repeats, ...); the port keeps one tensor a layer.
+    A ``LeafGroup`` holds those tensors in repeat order and stands for the
+    stacked leaf wherever the reference's leaf shape matters (an optimizer's
+    moments, a checkpoint's leaf): ``shape`` is the stacked shape,
+    ``stack()`` the stacked value and ``copy_(stacked)`` writes each slice
+    back into its tensor. It is a leaf of any tree (not a tuple)."""
+
+    def __init__(self, tensors):
+        self.tensors = tuple(tensors)
+        first = self.tensors[0]
+        if any(t.shape != first.shape or t.dtype != first.dtype for t in self.tensors):
+            raise ValueError("a LeafGroup's tensors must share shape and dtype")
+
+    def __iter__(self):
+        return iter(self.tensors)
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((len(self.tensors),) + tuple(self.tensors[0].shape))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.tensors[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.tensors[0].device
+
+    def stack(self) -> torch.Tensor:
+        return torch.stack([t.detach() for t in self.tensors])
+
+    @torch.no_grad()
+    def copy_(self, stacked: torch.Tensor) -> "LeafGroup":
+        if tuple(stacked.shape) != tuple(self.shape):
+            raise ValueError(f"stacked value {tuple(stacked.shape)} for a group of "
+                             f"{tuple(self.shape)}")
+        for t, s in zip(self.tensors, stacked):
+            t.copy_(s)
+        return self
+
+
+def tree_flatten(tree) -> list:
+    """The leaves of nested dicts, lists and tuples in the reference's
+    flattening order (dict keys sorted, sequences in order, a
+    ``NamedTuple``'s fields in order); a ``LeafGroup`` is one leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_flatten(v)]
+    return [tree]
+
+
 class ParamModule(nn.Module):
     """A module whose parameters are a descriptor tree's leaves, under the
     tree's names: a PD leaf becomes an ``nn.Parameter`` (uninitialized until
@@ -93,6 +155,7 @@ class ParamModule(nn.Module):
     def __init__(self, tree: dict, *, dtype: torch.dtype, device=None):
         super().__init__()
         self._pds: dict[str, PD] = {}
+        self._stack: int | None = None     # repeats of the reference's stacked leaves
         for name, leaf in tree.items():
             if _is_pd(leaf):
                 self._pds[name] = leaf
@@ -105,10 +168,11 @@ class ParamModule(nn.Module):
 @torch.no_grad()
 def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every ``ParamModule`` parameter from its descriptor, drawing from
-    ``generator`` in the order of ``module.named_modules()``."""
+    ``generator`` in the order of ``module.named_modules()`` (at the scale
+    of the reference's stacked leaf where the module's ``_stack`` is set)."""
     for sub in module.modules():
         if isinstance(sub, ParamModule):
             for name, pd in sub._pds.items():
                 p = getattr(sub, name)
-                p.copy_(_init_leaf(pd, generator, p.dtype, p.device))
+                p.copy_(_init_leaf(pd, generator, p.dtype, p.device, sub._stack))
     return module

@@ -272,7 +272,8 @@ def test_port_is_jax_free():
             "repro_torch.kernels.build, repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.distributed, repro_torch.launch.mesh, repro_torch.data.pipeline, "
             "repro_torch.configs, repro_torch.models, repro_torch.models.layers, "
-            "repro_torch.models.ssm, repro_torch.models.params; "
+            "repro_torch.models.ssm, repro_torch.models.params, repro_torch.optim, "
+            "repro_torch.checkpoint, repro_torch.train, repro_torch.launch.train; "
             "from repro_torch.data import token_stream, TokenStreamConfig; "
             "from repro_torch.launch.serve import serve_lm; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
