@@ -245,6 +245,25 @@ result line:
                step's device operations by kind and its idle share, and the
                forward + backward and one AdamW update timed alone. Training
                runs plain torch ops: no kernel of the port.
+   shard    — the sharding rules (A15.3) on one NCCL rank, a (1, 1)
+               ("data", "model") DeviceMesh: (a) gemma3-1b at full width,
+               bf16 AdamW under remat, SHARD_STEPS steps on 4 x 1,024 tokens
+               through Trainer(mesh=, rules=AxisRules(mesh)) from the state
+               of as many unsharded steps: losses and parameters after the
+               last step bit-equal (every placement on a (1, 1) mesh is
+               Replicate()), step ms and device peaks side by side; a
+               blocking save, restored onto a (1, 1, 1) ("pod", "data",
+               "model") mesh leaf for leaf bit-equal, and the next step's
+               loss there equal to the uninterrupted one's; (b)
+               granite-moe-3b-a800m at full width (48 experts, top-8), one
+               forward and backward under two-level checkpointing against
+               one-level remat (bit-equal; both device peaks), then under
+               the mesh's rules through the expert-parallel MoE (its
+               all_to_alls over the one-rank "model" group) against the
+               local MoE (loss and expert gradients bit-equal); (c) a world
+               of SHARD_WORLD NCCL ranks on the one card (beside (a)'s
+               save and restore), reported. Plain
+               torch ops and DTensor: no kernel of the port.
 7. times    — the full-size sweeps (SUSY: B1; MillionSongs: B1 and B4) and
                the predict-shape kernel matmul against float32 and float64
                twins; the MillionSongs fit's blocked T and A against
@@ -283,6 +302,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -555,6 +575,23 @@ GEMMA_TRAIN = (4, 1024, 5)
 #: bits)
 GEMMA_MB_LOSS_RTOL = 1e-2
 GEMMA_MB_PARAM_REL = 0.25
+#: shard (a): gemma3-1b at full width on a (1, 1) ("data", "model") mesh of
+#: one NCCL rank: steps through Trainer(mesh=, rules=) from the state of as
+#: many unsharded steps, on train (b)'s batch shape. Every spec resolves onto
+#: size-1 axes, so every placement is Replicate() and the sharded step runs
+#: the unsharded one's ops: losses and parameters bit-equal
+SHARD_STEPS = 3
+#: shard (b): granite-moe-3b-a800m at full width, one forward and backward
+#: of (batch, tokens): the expert-parallel MoE against the local one, the
+#: loss and the expert weights' gradients bit-equal (one rank: the same
+#: dispatch at capacity ceil(T K cf / E) = int(T K cf / E) = 1024 here, and
+#: all_to_alls that copy)
+SHARD_MOE_ARCH = "granite-moe-3b-a800m"
+SHARD_MOE_BATCH = (4, 1024)
+#: shard (c): a world of this many NCCL ranks on the one card, each its
+#: own process, given this long
+SHARD_WORLD = 4
+SHARD_WORLD_TIMEOUT = 90
 SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
 SOURCE_BLOCKED = "src/repro_torch/kernels/csrc/blocked_cholesky.cu"
 DEVICE = "cuda"
@@ -3655,6 +3692,295 @@ def gemma_train(torch, args, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_shard(torch, args, card: str) -> None:
+    """The sharding rules (A15.3; see the module doc, phase ``shard``): (a)
+    and (b) on a (1, 1) mesh of one NCCL rank; (c) runs beside (a)'s save
+    and restore, which wait on the disk."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1,
+                                device_id=torch.device(DEVICE, torch.cuda.current_device()))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device_type=DEVICE)
+            world = []
+            shard_gemma(torch, args, card, mesh, Path(d),
+                        lambda: world.append(shard_world_start(Path(d))))
+            shard_granite(torch, args, card, mesh)
+        finally:
+            dist.destroy_process_group()
+            if world:
+                shard_world_report(*world[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = (torch.cuda.memory_allocated() - held) / 2**30
+    say(f"[shard] phase {time.perf_counter() - t_phase:.1f} s; it leaves {left:.3f} GiB "
+        f"allocated above the {held / 2**30:.3f} GiB it found")
+    check(left < 0.5, "the shard phase left its states on the card")
+
+
+def shard_gemma(torch, args, card: str, mesh, d: Path, before_save) -> None:
+    """(a) gemma3-1b: SHARD_STEPS unsharded steps, then as many through
+    ``Trainer(mesh=, rules=)`` from the same state on the same batch; a
+    blocking save (``before_save()`` first); one more step (the
+    uninterrupted run); the checkpoint restored onto a (1, 1, 1) ("pod",
+    "data", "model") mesh, every leaf against the saved one, and the next
+    step there."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh import AxisRules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import (TrainConfig, Trainer, TrainerConfig, init_train_state,
+                                   make_train_step, state_tree)
+
+    cfg = get_config(LM_ARCH)
+    B, S, _ = GEMMA_TRAIN
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=100)
+    g = torch.Generator(device=DEVICE).manual_seed(args.seed + 1)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=g, device=DEVICE, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+
+    def fresh():
+        return init_train_state(torch.Generator(device=DEVICE).manual_seed(args.seed), cfg, tcfg)
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    state = fresh()
+    step = make_train_step(cfg, tcfg)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, ms = [], []
+    for k in range(SHARD_STEPS):
+        (state, met), t = synced(torch, lambda: step(state, batch))
+        loss.append(float(met["loss"]))
+        ms.append(1e3 * t)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    after = [p.detach().clone() for p in state.params.parameters()]
+    del state, step
+    torch.cuda.empty_cache()
+
+    rules = AxisRules(mesh)
+    rcfg = TrainerConfig(ckpt_dir=str(d / "ckpt"), ckpt_every=0, async_ckpt=False)
+    (tr, t_place) = synced(torch, lambda: Trainer(cfg, tcfg, rcfg, mesh=mesh, rules=rules,
+                                                 state=fresh()))
+    held_m = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hist = tr.fit(iter([batch] * SHARD_STEPS), steps=SHARD_STEPS)
+    peak_m = (torch.cuda.max_memory_allocated() - held_m) / 2**30
+    loss_m, ms_m = [h["loss"] for h in hist], [1e3 * t for t in tr.step_seconds]
+    n_dtensor = sum(hasattr(p, "placements") for p in tr.state.params.parameters())
+    params_m = [full(p).detach() for p in tr.state.params.parameters()]
+    same = all(torch.equal(m, a) for m, a in zip(params_m, after))
+    worst = max(float((m.float() - a.float()).abs().max()) for m, a in zip(params_m, after))
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(loss_m, loss))
+    del after, params_m
+    say(f"[shard] (a) {card}: {cfg.name} full width, bf16 AdamW remat {cfg.remat!r}, batch "
+        f"{B} x {S}, {SHARD_STEPS} steps from one seed: unsharded loss "
+        f"{[round(v, 6) for v in loss]}, step ms {[round(v, 3) for v in ms]}, device peak "
+        f"{peak:.3f} GiB above the {held / 2**30:.3f} GiB held; through Trainer(mesh (1, 1) "
+        f"('data', 'model'), AxisRules) with {n_dtensor} DTensor parameters (placed in "
+        f"{t_place:.3f} s): loss {[round(v, 6) for v in loss_m]} (largest relative difference "
+        f"{lrel:.3e}), step ms {[round(v, 3) for v in ms_m]} (synchronised), device peak "
+        f"{peak_m:.3f} GiB above the {held_m / 2**30:.3f} GiB held; parameters after the last "
+        f"step bit-equal to the unsharded ones: {same} (largest difference {worst:.3e})")
+    check(n_dtensor == sum(1 for _ in tr.state.params.parameters()),
+          "the Trainer on a mesh left plain parameters")
+    check(all(np.isfinite(loss_m)) and loss_m == loss and same,
+          "the sharded gemma3-1b steps are not bit-equal to the unsharded ones")
+
+    before_save()
+    (_, t_save) = synced(torch, lambda: tr.save(blocking=True))
+    saved = [full(x).to("cpu", copy=True) for x in tree_leaves(state_tree(tr.state, cfg))]
+    n_bytes = sum(x.numel() * x.element_size() for x in saved)
+    next_loss = tr.fit(iter([batch]), steps=1)[0]["loss"]
+    del tr
+    torch.cuda.empty_cache()
+    target = make_mesh((1, 1, 1), ("pod", "data", "model"), device_type=DEVICE)
+    tr = Trainer(cfg, tcfg, rcfg, mesh=target, rules=AxisRules(target), state=fresh())
+    (restored, t_load) = synced(torch, tr.restore)
+    got = tree_leaves(state_tree(tr.state, cfg))
+    equal = len(got) == len(saved) and all(
+        a.dtype == b.dtype and torch.equal(full(a).cpu(), b) for a, b in zip(got, saved))
+    del got, saved
+    next_t = tr.fit(iter([batch]), steps=1)[0]["loss"]
+    say(f"[shard] (a) saved {n_bytes / 1e9:.3f} GB in {t_save:.3f} s (rank 0 writes, raw "
+        f"codec), restored at step {restored} onto a (1, 1, 1) ('pod', 'data', 'model') mesh in "
+        f"{t_load:.3f} s: every leaf bit-equal to the saved one: {equal}; the next step's loss "
+        f"there {next_t:.6f}, uninterrupted {next_loss:.6f}")
+    check(restored == SHARD_STEPS and equal and np.isfinite(next_t) and next_t == next_loss,
+          "the elastic restore of gemma3-1b is off")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def shard_granite(torch, args, card: str, mesh) -> None:
+    """(b) granite-moe-3b-a800m: one forward and backward without rules
+    under two-level checkpointing, again with one level, then under the
+    mesh's rules (expert-parallel MoE)."""
+    import contextlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh import AxisRules, use_rules
+    from repro_torch.models import layers as L
+    from repro_torch.models import loss_fn, model_params, place_module
+    from repro_torch.models import model as model_mod
+
+    cfg = get_config(SHARD_MOE_ARCH)
+    _, n_per, _ = model_mod.split_periods(cfg.layer_pattern)
+    a = model_mod._sqrt_factor(n_per)
+    check(cfg.remat == "full" and n_per >= 12 and a > 1,
+          f"{cfg.name} does not reach the two-level checkpointing")
+    B, S = SHARD_MOE_BATCH
+    model = model_params(torch.Generator(device=DEVICE).manual_seed(args.seed), cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device=DEVICE).manual_seed(args.seed + 2)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=g, device=DEVICE, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    names = [n for n, _ in model.named_parameters()]
+    experts = [i for i, n in enumerate(names) if ".mlp.w_" in n]
+    sharded_calls = [0]
+    inner = L._moe_sharded
+
+    def counted(*a, **kw):
+        sharded_calls[0] += 1
+        return inner(*a, **kw)
+
+    def run(rules=None):
+        """(loss, the expert weights' gradients, seconds, device peak GiB,
+        GiB the forward left allocated for the backward)."""
+        params = list(model.parameters())
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kept = [0.0]
+
+        def fb():
+            loss, _ = loss_fn(model, cfg, batch)
+            kept[0] = (torch.cuda.memory_allocated() - held) / 2**30
+            return loss, torch.autograd.grad(loss, params)
+
+        with use_rules(rules) if rules else contextlib.nullcontext():
+            (loss, grads), t = synced(torch, fb)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        loss = float((loss.full_tensor() if hasattr(loss, "full_tensor") else loss).detach())
+        grads = [grads[i] for i in experts]
+        return (loss, [x.full_tensor() if hasattr(x, "full_tensor") else x for x in grads], t,
+                peak, kept[0])
+
+    loss2, g2, t2, peak2, kept2 = run()
+    model_mod._sqrt_factor, saved_factor = (lambda n: 1), model_mod._sqrt_factor
+    try:
+        loss1, g1, t1, peak1, kept1 = run()
+    finally:
+        model_mod._sqrt_factor = saved_factor
+    equal = loss1 == loss2 and all(torch.equal(x, y) for x, y in zip(g1, g2))
+    worst = max(float((x.float() - y.float()).abs().max()) for x, y in zip(g1, g2))
+    del g1
+    torch.cuda.empty_cache()
+    place_module(model, AxisRules(mesh))
+    L._moe_sharded = counted
+    try:
+        loss_s, g_s, t_s, peak_s, _ = run(AxisRules(mesh))
+    finally:
+        L._moe_sharded = inner
+    num = sum(float(torch.sum((x.float() - y.float()) ** 2)) for x, y in zip(g_s, g2))
+    den = sum(float(torch.sum(y.float() ** 2)) for y in g2)
+    grel = (num / den) ** 0.5
+    lrel = abs(loss_s - loss2) / abs(loss2)
+    equal_s = loss_s == loss2 and all(torch.equal(x, y) for x, y in zip(g_s, g2))
+    say(f"[shard] (b) {card}: {cfg.name} full width ({n_params} parameters, bf16, "
+        f"{cfg.padded_experts} experts of which {cfg.n_experts} real, top-{cfg.top_k}), one "
+        f"forward and backward of {B} x {S} tokens: two-level checkpointing (n_per {n_per}, "
+        f"a = {a}) loss {loss2:.6f}, {1e3 * t2:.3f} ms, device peak {peak2:.3f} GiB above "
+        f"what was held before (the parameters), {kept2:.4f} GiB kept by the forward for the "
+        f"backward; one-level remat loss {loss1:.6f}, {1e3 * t1:.3f} ms, device peak "
+        f"{peak1:.3f} GiB, {kept1:.4f} GiB kept; loss and the expert weights' {len(experts)} gradients bit-equal: "
+        f"{equal} (largest difference {worst:.3e})")
+    say(f"[shard] (b) {card}: under AxisRules on the (1, 1) mesh (expert-parallel MoE, "
+        f"_moe_sharded called {sharded_calls[0]} times, two all_to_all_single over the "
+        f"'model' group each): loss {loss_s:.6f} (relative {lrel:.3e}), expert gradients "
+        f"normwise {grel:.3e} of the local ones, bit-equal to the local MoE: {equal_s}, "
+        f"{1e3 * t_s:.3f} ms, device peak {peak_s:.3f} GiB")
+    check(equal, "two-level checkpointing changed the loss or the gradients")
+    check(kept2 < kept1, "two-level checkpointing kept no less for the backward than one level")
+    check(sharded_calls[0] >= len(cfg.layer_pattern), "the MoE did not take the sharded path")
+    check(np.isfinite(loss_s) and equal_s,
+          "the expert-parallel MoE is not bit-equal to the local one")
+    del model, g2, g_s
+    torch.cuda.empty_cache()
+
+
+def shard_world_start(d: Path):
+    """(c) SHARD_WORLD NCCL ranks on the one card (``--shard-worker``), each
+    building a (2, 2) DeviceMesh and redistributing a DTensor, started.
+    Returns what ``shard_world_report`` reads."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--shard-worker"]
+    logs = [d / f"shard_{r}.log" for r in range(SHARD_WORLD)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as fh:
+            procs.append(subprocess.Popen(cmd + [str(r), str(SHARD_WORLD), str(d)],
+                                          stdout=fh, stderr=subprocess.STDOUT,
+                                          cwd=Path(__file__).resolve().parent))
+    return procs, logs, time.perf_counter()
+
+
+def shard_world_report(procs, logs, t0: float) -> None:
+    """Wait for (c)'s ranks until SHARD_WORLD_TIMEOUT after their start,
+    kill what is left, and report, whatever happened: the multi-rank checks
+    are the CPU tests'."""
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(SHARD_WORLD_TIMEOUT - (time.perf_counter() - t0), 1.0))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    said = []
+    for log in logs:
+        lines = [x for x in log.read_text().splitlines() if x.strip()]
+        said.append(next((x for x in lines if x.startswith("[shard-worker]")),
+                         next((x for x in reversed(lines) if "Error" in x),
+                              lines[-1] if lines else "(no output)")))
+    say(f"[shard] (c) {SHARD_WORLD} NCCL ranks on one card, each a process: exit codes "
+        f"{codes}, done {time.perf_counter() - t0:.1f} s after their start (killed at "
+        f"{SHARD_WORLD_TIMEOUT} s); " + " | ".join(str(x)[:300] for x in said))
+
+
+def shard_worker(torch, args) -> int:
+    """One rank of shard (c): a (2, 2) mesh over NCCL on card 0, one DTensor
+    redistributed from Shard to Replicate (an all-gather)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    rank, world, d = int(args.shard_worker[0]), int(args.shard_worker[1]), args.shard_worker[2]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{d}/shard_store", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh((2, world // 2), ("data", "model"), device_type=DEVICE)
+        x = torch.arange(8.0, device=DEVICE).reshape(4, 2)
+        y = distribute_tensor(x, mesh, [Shard(0), Shard(1)]).redistribute(
+            mesh, [Replicate(), Replicate()]).to_local()
+        torch.cuda.synchronize()
+        say(f"[shard-worker] rank {rank}: the (2, 2) mesh redistributed over NCCL: "
+            f"{bool(torch.equal(x, y))}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def lm_close(torch, got, ref, rtol: float, atol: float) -> tuple[float, float]:
     """(max |got - ref|, max |got - ref| / (atol + rtol |ref|)): the second
     is <= 1 where ``allclose`` holds."""
@@ -4363,6 +4689,7 @@ def main(argv=None) -> int:
     ap.add_argument("--checks-only", action="store_true",
                     help="build and run the kernel checks only; prints no result line")
     ap.add_argument("--mesh-worker", nargs=4, help=argparse.SUPPRESS)   # one mesh rank
+    ap.add_argument("--shard-worker", nargs=3, help=argparse.SUPPRESS)  # one rank of shard (c)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4373,6 +4700,8 @@ def main(argv=None) -> int:
         return 3
     if args.mesh_worker:
         return mesh_worker(torch, args)
+    if args.shard_worker:
+        return shard_worker(torch, args)
     t_start = time.perf_counter()
     card = phase_device(torch)
     build_s = phase_build()
@@ -4405,6 +4734,8 @@ def main(argv=None) -> int:
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the LM phase")
     bf16_rows += phase_train(torch, args, card)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the training phase")
+    phase_shard(torch, args, card)
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the sharding phase")
     kernels = phase_times(torch, main_res, msd_res, bf16_rows, path_res)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, {build_s:.1f} s of it the build")
     say(f"card: {card}")

@@ -19,6 +19,10 @@ bfloat16) under the dtype name ``"bfloat16"``, the reference's.
 
 Every leaf is copied to the host before ``save_checkpoint`` returns, so a
 caller may update its tensors in place while a non-blocking save writes.
+A leaf on a mesh (a DTensor) is gathered whole first, on every rank (a
+collective: every rank saves together), and only rank 0 copies it to the
+host and writes, in the same format; ``load_checkpoint(shardings=)`` places each leaf read on a
+mesh, which may differ from the one that saved (the elastic restore).
 The write goes to ``<path>.tmp`` and is renamed into place, so a
 preemption mid-write never leaves a partial checkpoint under ``path``.
 """
@@ -32,7 +36,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.mesh import leaf_sharding
 from repro_torch.models.params import LeafGroup, tree_flatten
 
 _BF16 = "bfloat16"
@@ -61,28 +67,50 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
-def _to_host(leaf) -> np.ndarray:
+def _to_host(leaf, keep: bool = True) -> np.ndarray | None:
     """A copy of the leaf on the host (never a view of a tensor's memory):
-    bfloat16 as its bits, ``uint16``."""
+    bfloat16 as its bits, ``uint16``. A leaf on a mesh (a DTensor) is
+    gathered whole first, which is a collective; with ``keep`` False it is
+    gathered and dropped, and nothing is copied (None)."""
     if isinstance(leaf, LeafGroup):
-        return np.stack([_to_host(t) for t in leaf])
+        parts = [_to_host(t, keep) for t in leaf]
+        return np.stack(parts) if keep else None
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):          # a DTensor: its whole value
+            leaf = leaf.full_tensor()
+        if not keep:
+            return None
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
         return t.numpy()
-    return np.array(leaf)
+    return np.array(leaf) if keep else None
+
+
+def host_leaves(tree) -> dict[str, np.ndarray] | None:
+    """Every leaf of ``tree`` copied to the host, by its name on disk. Where
+    leaves are on a mesh every rank calls this together (each leaf's
+    gather is a collective) and rank 0 alone keeps the copies: the other
+    ranks get None and never hold the state on the host."""
+    named = {f"leaf_{i:05d}": leaf for i, leaf in enumerate(tree_flatten(tree))}
+    keep = (not any(leaf_sharding(v) is not None for v in named.values())
+            or dist.get_rank() == 0)
+    host = {k: _to_host(v, keep) for k, v in named.items()}
+    return host if keep else None
 
 
 def save_checkpoint(path: str, tree, step: int, *, blocking: bool = True,
                     extra: dict | None = None) -> threading.Thread | None:
     """Save ``tree`` under the directory ``path``: every leaf copied to the
     host now, written (by a daemon thread unless ``blocking``) to
-    ``path + ".tmp"`` and renamed to ``path``. Returns the thread, or None."""
-    named = {f"leaf_{i:05d}": leaf for i, leaf in enumerate(tree_flatten(tree))}
-    dtypes = {k: (_BF16 if getattr(v, "dtype", None) == torch.bfloat16 else None)
-              for k, v in named.items()}
-    host = {k: _to_host(v) for k, v in named.items()}
+    ``path + ".tmp"`` and renamed to ``path``. Returns the thread, or None.
+    A tree with leaves on a mesh is saved by every rank together and
+    copied and written by rank 0 alone (the others return None)."""
+    dtypes = {f"leaf_{i:05d}": (_BF16 if getattr(v, "dtype", None) == torch.bfloat16 else None)
+              for i, v in enumerate(tree_flatten(tree))}
+    host = host_leaves(tree)
+    if host is None:
+        return None
 
     def _write():
         tmp = path + ".tmp"
@@ -128,15 +156,17 @@ def load_checkpoint(path: str, like_tree, shardings=None) -> tuple[Any, int]:
     """Restore into the structure of ``like_tree`` (shapes must match, a
     ``LeafGroup`` at its stacked shape) -> (tree of new tensors, step).
     Each leaf keeps its saved dtype and goes to the device of its ``like``
-    leaf (the CPU for a ``meta`` or non-tensor one). ``shardings`` (the
-    reference's elastic restore onto a mesh) waits for the sharding rules,
-    ROADMAP.md item A15.3."""
-    if shardings is not None:
-        raise NotImplementedError("load_checkpoint(shardings=...): the sharding rules are "
-                                  "not ported (ROADMAP.md item A15.3)")
+    leaf (the CPU for a ``meta`` or non-tensor one); where ``shardings``
+    (a tree of ``NamedSharding`` or None matching ``like_tree``) has a
+    sharding, the leaf is placed on its mesh at it: on any mesh, whatever
+    mesh saved (every rank reads the whole leaf and keeps its shard)."""
     with open(os.path.join(path, "MANIFEST.json")) as f:
         manifest = json.load(f)
     leaves_like = tree_flatten(like_tree)
+    shard_leaves = ([None] * len(leaves_like) if shardings is None
+                    else tree_flatten(shardings))
+    if len(shard_leaves) != len(leaves_like):
+        raise ValueError(f"{len(shard_leaves)} shardings for {len(leaves_like)} leaves")
     codec = manifest.get("codec", "zstd")   # pre-codec manifests were zstd
     dctx = None
     if codec == "zstd":
@@ -160,10 +190,12 @@ def load_checkpoint(path: str, like_tree, shardings=None) -> tuple[Any, int]:
         exp_shape = tuple(getattr(like, "shape", ()) or ())
         if tuple(arr.shape) != exp_shape:
             raise ValueError(f"shape mismatch for {k}: ckpt {arr.shape} vs model {exp_shape}")
+        sh = shard_leaves[i]
         dev = getattr(like, "device", torch.device("cpu"))
         if torch.device(dev).type == "meta":
             dev = torch.device("cpu")
-        out.append(_from_host(arr.copy(), meta["dtype"], dev))
+        t = _from_host(arr.copy(), meta["dtype"], dev)
+        out.append(t if sh is None else sh.place(t))
     return _unflatten(like_tree, iter(out)), manifest["step"]
 
 

@@ -70,8 +70,9 @@ def decompress_tree(qs, dtype: torch.dtype = torch.float32):
 
 
 def init_residuals(params):
-    return _tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                     params)
+    """fp32 zeros beside each parameter leaf (on a mesh, at its sharding)."""
+    from .mesh import zeros_for
+    return _tree_map(lambda p: zeros_for(p, p.shape, torch.float32), params)
 
 
 def compressed_grads(grads, residuals, dtype: torch.dtype = torch.float32):

@@ -1,12 +1,20 @@
-"""Device meshes for the data-parallel fit.
+"""Device meshes: the data-parallel fit's and the LM substrate's.
 
-Counterpart of ``repro/launch/mesh.py``'s ``make_mesh``. A function, so
-that importing this module starts no process group. ``make_production_mesh``
-serves the LM substrate and is ported with it (ROADMAP A15).
+Counterpart of ``repro/launch/mesh.py``. Functions, so that importing this
+module starts no process group.
 """
 from __future__ import annotations
 
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The reference's production mesh: (16, 16) over ("data", "model"), or
+    (2, 16, 16) over ("pod", "data", "model") with ``multi_pod``: a world of
+    256 or 512 ranks, one a card."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, "cuda")
 
 
 def make_mesh(shape, axes, device_type: str = "cuda") -> DeviceMesh:

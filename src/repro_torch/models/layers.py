@@ -15,11 +15,15 @@ RoPE with fp32 angles, and ``gelu`` as the tanh approximation.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed.mesh import (PartitionSpec as P, current_rules, data_axes,
+                                          lshard, named_sizes, placements_for)
 from .params import PD, ParamModule
 
 Tensor = torch.Tensor
@@ -93,6 +97,7 @@ class MLP(ParamModule):
 
     def forward(self, x: Tensor, cfg: ModelConfig) -> Tensor:
         h = _act(cfg.act, x @ self.w_gate, x @ self.w_up)
+        h = lshard(h, ("batch", None, "ff"))
         return h @ self.w_down
 
 
@@ -112,32 +117,47 @@ def moe_pd(cfg: ModelConfig) -> dict:
 
 
 class MoE(ParamModule):
-    """Token-dropping top-k MoE: the reference's local path (``_moe_local``).
-    Its expert-parallel path over a mesh comes with the sharding rules
-    (ROADMAP.md item A15.3)."""
+    """Token-dropping top-k MoE. Two paths, as in the reference:
+
+    * expert parallelism (``_moe_sharded``): under rules whose mesh has a
+      ``"model"`` axis, when the sequence splits over it, the batch over
+      the data axes, and S > 1 (training and prefill). Tokens are sharded
+      (batch over the data axes, sequence over ``"model"``), dispatched
+      locally, sent to their experts' rank by one all-to-all, run through
+      the local experts and sent back by a second;
+    * local dispatch (``_moe_local``): everywhere else (one device, decode).
+    """
 
     def __init__(self, cfg: ModelConfig, *, dtype, device=None):
         super().__init__(moe_pd(cfg), dtype=dtype, device=device)
 
     def forward(self, x: Tensor, cfg: ModelConfig) -> Tensor:
+        mesh = current_rules().mesh
+        sizes = {} if mesh is None else named_sizes(mesh)
+        if "model" in sizes:
+            mp = sizes["model"]
+            dp = data_axes(mesh)
+            dp_size = math.prod(sizes[a] for a in dp)
+            B, S, _ = x.shape
+            if S % mp == 0 and B % dp_size == 0 and S // mp >= 1 and S > 1:
+                return _moe_sharded(self, x, cfg, mesh, mp, dp)
         return _moe_local(self, x, cfg)
 
 
-def _moe_local(p: MoE, x: Tensor, cfg: ModelConfig) -> Tensor:
-    B, S, D = x.shape
+def _dispatch(xf: Tensor, router: Tensor, cfg: ModelConfig, C: int):
+    """Route the tokens xf (T, D) to their top-k experts at capacity C.
+    Returns (xe (E, C, D) the experts' inputs, keep, slot, gate): an
+    assignment past its expert's capacity is dropped (its slot the
+    overflow row E * C)."""
+    T, D = xf.shape
     E, K = cfg.padded_experts, cfg.top_k
-    T = B * S
-    # capacity over this call's tokens: prefill and decode drop differently
-    C = max(1, int(T * K / cfg.n_experts * cfg.capacity_factor))
-
-    xf = x.reshape(T, D)
-    logits = (xf @ p.router).float()                                 # (T, E_pad)
+    logits = (xf @ router).float()                                   # (T, E_pad)
     if E != cfg.n_experts:   # mask padded experts out of the routing
-        pad = torch.arange(E, device=x.device)[None, :] >= cfg.n_experts
+        pad = torch.arange(E, device=xf.device)[None, :] >= cfg.n_experts
         logits = torch.where(pad, NEG, logits)
     probs = torch.softmax(logits, -1)
     gate, eidx = torch.topk(probs, K, dim=-1)                        # (T, K)
-    gate = (gate / torch.sum(gate, -1, keepdim=True)).to(x.dtype)
+    gate = (gate / torch.sum(gate, -1, keepdim=True)).to(xf.dtype)
 
     e_flat = eidx.reshape(-1)                                        # (T*K,)
     # position of each assignment within its expert (priority: token order)
@@ -148,19 +168,87 @@ def _moe_local(p: MoE, x: Tensor, cfg: ModelConfig) -> Tensor:
     slot = torch.where(keep, e_flat * C + pos, E * C)               # overflow -> last row
 
     x_rep = torch.repeat_interleave(xf, K, dim=0)                    # (T*K, D)
-    buf = torch.zeros(E * C + 1, D, dtype=x.dtype, device=x.device)
-    buf.index_add_(0, slot, x_rep * keep[:, None].to(x.dtype))
-    xe = buf[:-1].reshape(E, C, D)
+    buf = torch.zeros(E * C + 1, D, dtype=xf.dtype, device=xf.device)
+    buf = buf.index_add(0, slot, x_rep * keep[:, None].to(xf.dtype))
+    return buf[:-1].reshape(E, C, D), keep, slot, gate
 
-    h = _act(cfg.act, torch.einsum("ecd,edf->ecf", xe, p.w_gate),
-             torch.einsum("ecd,edf->ecf", xe, p.w_up))
-    ye = torch.einsum("ecf,efd->ecd", h, p.w_down)
 
+def _combine(ye: Tensor, keep: Tensor, slot: Tensor, gate: Tensor) -> Tensor:
+    """The experts' outputs ye (E, C, D) back to their tokens, gate-weighted:
+    (T, D)."""
+    E, C, D = ye.shape
+    T, K = gate.shape
     yf = ye.reshape(E * C, D)
     y_tok = torch.where(keep[:, None], yf[torch.clamp(slot, max=E * C - 1)],
                         torch.zeros((), dtype=yf.dtype, device=yf.device))
-    y = (y_tok.reshape(T, K, D) * gate[..., None]).sum(dim=1)
-    return y.reshape(B, S, D)
+    return (y_tok.reshape(T, K, D) * gate[..., None]).sum(dim=1)
+
+
+def _experts(xe: Tensor, wg: Tensor, wu: Tensor, wd: Tensor, cfg: ModelConfig) -> Tensor:
+    h = _act(cfg.act, torch.einsum("ecd,edf->ecf", xe, wg), torch.einsum("ecd,edf->ecf", xe, wu))
+    return torch.einsum("ecf,efd->ecd", h, wd)
+
+
+def _moe_local(p: MoE, x: Tensor, cfg: ModelConfig) -> Tensor:
+    B, S, D = x.shape
+    T = B * S
+    # capacity over this call's tokens: prefill and decode drop differently
+    C = max(1, int(T * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    xe, keep, slot, gate = _dispatch(x.reshape(T, D), p.router, cfg, C)
+    xe = lshard(xe, ("experts", "expert_cap", None))
+    ye = lshard(_experts(xe, p.w_gate, p.w_up, p.w_down, cfg), ("experts", "expert_cap", None))
+    return _combine(ye, keep, slot, gate).reshape(B, S, D)
+
+
+def _moe_sharded(p: MoE, x: Tensor, cfg: ModelConfig, mesh, mp: int, dp: tuple) -> Tensor:
+    """Expert parallelism on local shards: the reference's ``shard_map``
+    with in_specs (P(dp, "model"), P(), P("model") x 3). Each rank takes
+    its (B/dp, S/mp) block of tokens, dispatches them at the capacity of
+    its own T = B/dp * S/mp tokens, and exchanges (E, C, D) buffers with
+    the ranks of its ``"model"`` group: expert ids are shard-major (expert
+    j * E_loc + e is rank j's e-th), as ``P("model")`` splits the weights.
+    Gradients: the router's and the experts' local gradients are partial
+    sums over the ranks whose tokens they saw (``to_local``'s
+    ``grad_placements``), the tokens' are their own shard's."""
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    sizes = named_sizes(mesh)
+    E, K = cfg.padded_experts, cfg.top_k
+    E_loc = E // mp
+    x_pl = placements_for(mesh, P(dp, "model"))
+    w_pl = placements_for(mesh, P("model"))
+    # a local gradient is a partial sum over the mesh dimensions whose ranks
+    # saw other tokens (size-1 dimensions replicate, as in placements_for)
+    summed = [Partial() if (a in dp or a == "model") and n > 1 else Replicate()
+              for a, n in sizes.items()]
+    w_grad = [w if a == "model" else g for a, w, g in zip(sizes, w_pl, summed)]
+
+    def local(t, placements, grad=None):
+        if not isinstance(t, DTensor):       # a plain tensor is replicated
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, placements).to_local(grad_placements=grad)
+
+    x_loc = local(x, x_pl)
+    router = local(p.router, [Replicate()] * mesh.ndim, summed)
+    wg, wu, wd = (local(w, w_pl, w_grad) for w in (p.w_gate, p.w_up, p.w_down))
+    group = mesh.get_group("model")
+
+    def all_to_all(t):
+        return all_to_all_single_autograd(t.contiguous(), None, None, group)
+
+    Bl, Sl, D = x_loc.shape
+    T = Bl * Sl
+    C = max(1, int(-(-T * K * cfg.capacity_factor // cfg.n_experts)))
+    xe, keep, slot, gate = _dispatch(x_loc.reshape(T, D), router, cfg, C)
+    # (E, C, D) -> (src shard, E_loc, C, D) -> (E_loc, mp * C, D)
+    xe = all_to_all(xe.reshape(mp, E_loc, C, D))
+    xe = xe.transpose(0, 1).reshape(E_loc, mp * C, D)
+    ye = _experts(xe, wg, wu, wd, cfg)                               # (E_loc, mp*C, D)
+    # back to the source-local (E, C, D) layout
+    ye = all_to_all(ye.reshape(E_loc, mp, C, D).transpose(0, 1))
+    y = _combine(ye.reshape(E, C, D), keep, slot, gate).reshape(Bl, Sl, D)
+    return DTensor.from_local(y, mesh, x_pl, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +428,7 @@ def attn_apply(p: Attention, x: Tensor, cfg: ModelConfig, spec: LayerSpec, *,
         if "q_norm" in p._pds:
             q = rms_norm(q, p.q_norm, cfg.norm_eps)
             k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q = lshard(q, ("batch", None, "heads", None))
         o = _sdpa(q, _expand_kv(k, G), _expand_kv(v, G), None)
     else:
         k = torch.einsum("bsd,dhk->bshk", x, p.wk)
@@ -348,6 +437,7 @@ def attn_apply(p: Attention, x: Tensor, cfg: ModelConfig, spec: LayerSpec, *,
             k, v = k + p.bk, v + p.bv
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)     # new tokens only
+        q = lshard(q, ("batch", None, "heads", None))
 
         if cache is not None and Sq > 1:
             # prefill: write the whole kv block at 0, attend over fresh kv
@@ -359,6 +449,8 @@ def attn_apply(p: Attention, x: Tensor, cfg: ModelConfig, spec: LayerSpec, *,
             kc = _masked_write(cache["k"], k, idx)
             vc = _masked_write(cache["v"], v, idx)
             new_cache = {"k": kc, "v": vc}
+            kc = lshard(kc, ("batch", "kv_seq", "kv_heads", None))
+            vc = lshard(vc, ("batch", "kv_seq", "kv_heads", None))
             k_pos = torch.arange(kc.shape[1], device=x.device)
             valid = k_pos <= idx
             if window > 0:

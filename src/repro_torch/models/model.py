@@ -13,17 +13,24 @@ each layer and each cross-entropy chunk under
 ``torch.utils.checkpoint.checkpoint`` (the reference's ``jax.checkpoint``
 of its period body, tail layers and CE chunks): their activations are
 recomputed in the backward pass, and a chunk's logits live only inside it.
-The reference's sharding annotations and its two-level (sqrt)
-checkpointing of deep period scans (``n_per >= 12``) change no value and
-are left out; both return with the sharding rules (ROADMAP.md item
-A15.3), which bring the deep configs that reach the sqrt checkpointing.
+A stack of ``n_per >= 12`` periods whose count has a divisor
+``a = _sqrt_factor(n_per) > 1`` is checkpointed on two levels, as the
+reference's: ``a`` groups of ``n_per // a`` periods each run under an
+outer checkpoint, so that the backward pass keeps O(a + n_per / a) layer
+inputs live instead of O(n_per). It changes memory only.
+
+Sharding: the reference's ``lshard`` annotations stand at the same places
+with the same logical axes (no-ops without active rules).
+``model_param_pspecs`` and ``cache_pspecs`` return the reference's specs,
+on its stacked trees (``stacked_model_pd``, the period slots' leading
+``"fsdp"`` axis included); ``models.place_module`` puts a model on a
+mesh, each layer's parameter at the spec of its own, unstacked,
+descriptor.
 
 The public functions keep the reference's names and signatures with the
 model in place of the parameter tree: ``forward(model, cfg, batch)``,
 ``loss_fn``, ``prefill``, ``decode_step``, ``init_cache``, ``cache_specs``,
 ``model_params(generator, cfg)`` and ``model_param_structs(cfg)``.
-``model_param_pspecs`` and ``cache_pspecs`` refuse until the sharding
-rules (A15.3).
 """
 from __future__ import annotations
 
@@ -34,10 +41,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, torch_dtype
+from repro_torch.distributed.mesh import PartitionSpec, lshard, recompute_contexts, unshard
 from . import layers as L
 from . import ssm as S
-from .params import (PD, LeafGroup, ParamModule, init_module, init_params,
-                     param_shape_structs)
+from .params import (PD, LeafGroup, ParamModule, init_module, init_params, param_pspecs,
+                     param_shape_structs, stack_pds)
 
 Tensor = torch.Tensor
 
@@ -122,6 +130,7 @@ def layer_apply(p: Block, x: Tensor, cfg: ModelConfig, spec: LayerSpec, *, posit
     if hasattr(p, "mlp"):
         h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
         x = x + p.mlp(h2, cfg)
+    x = lshard(x, ("batch", None, "embed"))
     return x, new_cache
 
 
@@ -218,10 +227,21 @@ def param_tree(model: Model, cfg: ModelConfig) -> dict:
     return tree
 
 
+def stacked_model_pd(cfg: ModelConfig) -> dict:
+    """The reference's descriptor tree: ``period`` (one tree a period slot,
+    stacked over its repeats with the leading ``"fsdp"`` axis) and
+    ``tail`` in place of ``layers``."""
+    period, n_per, tail = split_periods(cfg.layer_pattern)
+    tree = model_pd(cfg)
+    del tree["layers"]
+    tree["period"] = [stack_pds(layer_pd(cfg, spec), n_per) for spec in period]
+    tree["tail"] = [layer_pd(cfg, spec) for spec in tail]
+    return tree
+
+
 def model_param_pspecs(cfg: ModelConfig, rules):
-    """Not ported: the sharding rules are ROADMAP.md item A15.3."""
-    raise NotImplementedError("model_param_pspecs: the sharding rules are not ported "
-                              "(ROADMAP.md item A15.3)")
+    """The reference's PartitionSpecs of its parameter tree (stacked periods)."""
+    return param_pspecs(stacked_model_pd(cfg), rules)
 
 
 # ---------------------------------------------------------------------------
@@ -243,19 +263,44 @@ def _stack_apply(model: Model, cfg: ModelConfig, x: Tensor, *, positions, vision
                  caches=None, pos_scalar=None):
     """Run the layers in order. caches: None or one cache a layer. Returns
     (x, new caches or None). Under ``remat == "full"`` a differentiated
-    pass without caches checkpoints each layer."""
+    pass without caches checkpoints each layer, and a deep period stack
+    its groups of periods too (two-level checkpointing)."""
+    layers = list(zip(model.layers, cfg.layer_pattern))
+    kw = dict(positions=positions, vision_kv=vision_kv)
+    if _remat(cfg) and caches is None:
+        period, n_per, _ = split_periods(cfg.layer_pattern)
+        a = _sqrt_factor(n_per)
+        if n_per >= 12 and a > 1:
+            per_group = len(period) * (n_per // a)
+            for g in range(a):
+                x = checkpoint(_checkpointed_layers, layers[g * per_group:(g + 1) * per_group],
+                               x, cfg, kw, use_reentrant=False, context_fn=recompute_contexts)
+            layers = layers[a * per_group:]
+        return _checkpointed_layers(layers, x, cfg, kw), None
     new_caches = None if caches is None else []
-    remat = _remat(cfg) and caches is None
-    for i, (block, spec) in enumerate(zip(model.layers, cfg.layer_pattern)):
-        if remat:
-            x, nc = checkpoint(block, x, cfg, spec, positions=positions, vision_kv=vision_kv,
-                               use_reentrant=False)
-        else:
-            x, nc = block(x, cfg, spec, positions=positions, vision_kv=vision_kv,
-                          cache=None if caches is None else caches[i], pos_scalar=pos_scalar)
+    for i, (block, spec) in enumerate(layers):
+        x, nc = block(x, cfg, spec, cache=None if caches is None else caches[i],
+                      pos_scalar=pos_scalar, **kw)
         if caches is not None:
             new_caches.append(nc)
     return x, new_caches
+
+
+def _checkpointed_layers(layers, x: Tensor, cfg: ModelConfig, kw: dict) -> Tensor:
+    """Run (block, spec) pairs in order, each under a checkpoint."""
+    for block, spec in layers:
+        x, _ = checkpoint(block, x, cfg, spec, use_reentrant=False,
+                          context_fn=recompute_contexts, **kw)
+    return x
+
+
+def _sqrt_factor(n: int) -> int:
+    """Largest divisor of n that is <= sqrt(n)."""
+    best = 1
+    for a in range(2, int(n**0.5) + 1):
+        if n % a == 0:
+            best = a
+    return best
 
 
 def _remat(cfg: ModelConfig) -> bool:
@@ -266,6 +311,7 @@ def _remat(cfg: ModelConfig) -> bool:
 def _backbone(model: Model, cfg: ModelConfig, batch: dict) -> Tensor:
     """Embed -> stack -> final norm. Returns hidden states (B, S, D)."""
     x = _embed_inputs(model, cfg, batch)
+    x = lshard(x, ("batch", None, "embed"))
     positions = torch.arange(x.shape[1], device=x.device)
     vkv = _vision_kv_src(model, cfg, batch)
     x, _ = _stack_apply(model, cfg, x, positions=positions, vision_kv=vkv)
@@ -275,12 +321,14 @@ def _backbone(model: Model, cfg: ModelConfig, batch: dict) -> Tensor:
 def forward(model: Model, cfg: ModelConfig, batch: dict) -> Tensor:
     """Training/prefill forward -> logits (B, S, padded_vocab)."""
     x = _backbone(model, cfg, batch)
-    return torch.einsum("bsd,dv->bsv", x, model.lm_head)
+    logits = torch.einsum("bsd,dv->bsv", x, model.lm_head)
+    return lshard(logits, ("batch", None, "vocab"))
 
 
 def _ce_chunk(x_c: Tensor, labels_c: Tensor, lm_head: Tensor, cfg: ModelConfig) -> Tensor:
     """Summed CE over one sequence chunk (logits live only for the chunk)."""
     logits = torch.einsum("bsd,dv->bsv", x_c, lm_head)
+    logits = lshard(logits, ("batch", None, "vocab"))
     V = cfg.padded_vocab
     if V != cfg.vocab:   # mask padded vocab entries out of the normalizer
         pad = torch.arange(V, device=logits.device) >= cfg.vocab
@@ -288,7 +336,9 @@ def _ce_chunk(x_c: Tensor, labels_c: Tensor, lm_head: Tensor, cfg: ModelConfig) 
     m = torch.amax(logits, dim=-1).detach()
     sumexp = torch.sum(torch.exp((logits - m[..., None]).float()), dim=-1)
     lse = m.float() + torch.log(sumexp)
-    gold = torch.gather(logits, -1, labels_c.long()[..., None])[..., 0]
+    # DTensor's gather over a vocab-sharded dim reduces its masked partial
+    # wrongly (torch 2.13): the gather reads logits replicated on the vocab
+    gold = torch.gather(unshard(logits, -1), -1, labels_c.long()[..., None])[..., 0]
     return torch.sum(lse - gold.float())
 
 
@@ -306,7 +356,8 @@ def loss_fn(model: Model, cfg: ModelConfig, batch: dict, *, ce_chunk: int = 512)
     remat = _remat(cfg)
     for c in range(0, S_, Sc):
         args = (x[:, c:c + Sc], labels[:, c:c + Sc], model.lm_head, cfg)
-        total = total + (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
+        total = total + (checkpoint(_ce_chunk, *args, use_reentrant=False,
+                                    context_fn=recompute_contexts) if remat
                          else _ce_chunk(*args))
     loss = total / (B * S_)
     return loss, {"loss": loss, "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
@@ -359,9 +410,14 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, *,
 
 
 def cache_pspecs(cfg: ModelConfig, B: int, S_max: int, rules):
-    """Not ported: the sharding rules are ROADMAP.md item A15.3."""
-    raise NotImplementedError("cache_pspecs: the sharding rules are not ported "
-                              "(ROADMAP.md item A15.3)")
+    """The reference's PartitionSpecs of its decode cache: ``pos`` replicated,
+    ``period`` (one tree a slot, stacked over its repeats on an unnamed
+    leading axis) and ``tail``."""
+    period, n_per, tail = split_periods(cfg.layer_pattern)
+    tree = {"period": [stack_pds(layer_cache_pd(cfg, spec, B, S_max), n_per, axis_name=None)
+                       for spec in period],
+            "tail": [layer_cache_pd(cfg, spec, B, S_max) for spec in tail]}
+    return {"pos": PartitionSpec(), **param_pspecs(tree, rules)}
 
 
 @torch.no_grad()
@@ -387,9 +443,10 @@ def decode_step(model: Model, cfg: ModelConfig, cache: dict, batch: dict):
     written into the cache's tensors in place; the returned cache holds
     them and ``pos + 1``. Returns (logits (B, padded_vocab), cache)."""
     x = model.embed[batch["token"].long()][:, None, :]
+    x = lshard(x, ("batch", None, "embed"))
     pos = cache["pos"]
     x, new_caches = _stack_apply(model, cfg, x, positions=pos.reshape(1),
                                  caches=cache["layers"], pos_scalar=pos)
     x = L.rms_norm(x, model.ln_f, cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, model.lm_head)[:, 0]
-    return logits, {"pos": pos + 1, "layers": new_caches}
+    return lshard(logits, ("batch", "vocab")), {"pos": pos + 1, "layers": new_caches}

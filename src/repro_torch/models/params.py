@@ -6,7 +6,9 @@ one descriptor tree come (a) initialized tensors (``init_params``), (b)
 ``meta`` tensors of the same shapes (``param_shape_structs``: no
 allocation) and (c) a ``ParamModule`` whose parameters carry the tree's
 leaf names, so that a reference parameter tree maps onto it one to one.
-The logical axes are kept for the sharding rules (ROADMAP.md item A15.3).
+(d) ``param_pspecs`` resolves a tree's logical axes to PartitionSpecs by
+the sharding rules, and ``place_module`` puts a module's parameters on a
+mesh as DTensors, each at the sharding of its own descriptor.
 """
 from __future__ import annotations
 
@@ -77,9 +79,8 @@ def param_shape_structs(tree, dtype: torch.dtype) -> dict:
 
 
 def param_pspecs(tree, rules):
-    """Not ported: the sharding rules are ROADMAP.md item A15.3."""
-    raise NotImplementedError("param_pspecs: the sharding rules are not ported "
-                              "(ROADMAP.md item A15.3)")
+    """The PartitionSpec of each descriptor under ``rules`` (an ``AxisRules``)."""
+    return tree_map(lambda pd: rules.spec_for(pd.shape, pd.axes), tree)
 
 
 def stack_pds(tree, n: int, axis_name: str | None = "fsdp") -> dict:
@@ -123,6 +124,8 @@ class LeafGroup:
         return self.tensors[0].device
 
     def stack(self) -> torch.Tensor:
+        """The stacked value; of DTensors, a DTensor whose leading dimension
+        is replicated and whose others keep the tensors' shards."""
         return torch.stack([t.detach() for t in self.tensors])
 
     @torch.no_grad()
@@ -163,6 +166,22 @@ class ParamModule(nn.Module):
                     name, nn.Parameter(torch.empty(leaf.shape, dtype=dtype, device=device)))
             else:
                 self.add_module(name, ParamModule(leaf, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def place_module(module: nn.Module, rules) -> nn.Module:
+    """Put every ``ParamModule`` parameter of ``module`` on ``rules.mesh``, in
+    place: a DTensor ``Parameter`` at ``rules.sharding_for`` of its own
+    descriptor's shape and axes. Every rank holds the same full values
+    before (the same seed, or the same checkpoint); a parameter already on
+    the mesh is redistributed."""
+    for sub in module.modules():
+        if isinstance(sub, ParamModule):
+            for name, pd in sub._pds.items():
+                p = getattr(sub, name)
+                placed = rules.sharding_for(pd.shape, pd.axes).place(p.detach())
+                setattr(sub, name, nn.Parameter(placed, requires_grad=p.requires_grad))
+    return module
 
 
 @torch.no_grad()

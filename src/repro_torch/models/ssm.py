@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.mesh import lshard
 from .layers import rms_norm
 from .params import PD, ParamModule
 
@@ -87,7 +88,7 @@ def ssm_apply(p: Mamba2Mixer, x_in: Tensor, cfg: ModelConfig, *, cache: dict | N
         new_cache = {"conv": window[:, -(K - 1):]}
 
     xs, Bs, Cs = torch.split(xBC, [di, N, N], dim=-1)
-    xh = xs.reshape(B, S, H, P_)
+    xh = lshard(xs.reshape(B, S, H, P_), ("batch", None, "heads", None))
 
     if cache is not None and S == 1:
         # O(1) decode update

@@ -17,6 +17,12 @@ The port updates in place: ``update`` writes the new values into
 ``params`` and into the state's tensors and returns both. The scalar math
 (bias corrections, Adafactor's decay, the schedule) is taken in float32
 tensors on the parameters' device, as the reference takes it in float32.
+
+On a mesh (parameters that are DTensors) the state is DTensors too: a
+moment at its parameter's sharding (a ``LeafGroup``'s stacked: the leading
+dimension replicated), Adafactor's factored moments at it less the reduced
+dimension, so that an update whose gradients carry their parameters'
+sharding moves no data but the norms' scalars.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.distributed.compression import _tree_map
+from repro_torch.distributed.mesh import drop_dim, leaf_sharding, zeros_for
 from repro_torch.models.params import LeafGroup, tree_flatten
 
 Tensor = torch.Tensor
@@ -45,6 +52,13 @@ def is_param(x) -> bool:
 def _value(p) -> Tensor:
     """A parameter leaf's value at the reference's leaf shape."""
     return p.stack() if isinstance(p, LeafGroup) else p.detach()
+
+
+def _assign(dst, value: Tensor) -> None:
+    """Write ``value`` into a parameter leaf or a state tensor, in place (on
+    a mesh, at ``dst``'s sharding)."""
+    sh = leaf_sharding(dst)
+    dst.copy_(value if sh is None else sh.place(value))
 
 
 def tree_leaves(tree) -> list[Tensor]:
@@ -75,7 +89,7 @@ def clip_by_global_norm(tree, max_norm: float):
 def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
           state_dtype=torch.float32) -> Optimizer:
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=state_dtype, device=p.device)  # noqa: E731
+        zeros = lambda p: zeros_for(p, p.shape, state_dtype)  # noqa: E731
         return {"mu": _tree_map(zeros, params, is_leaf=is_param),
                 "nu": _tree_map(zeros, params, is_leaf=is_param),
                 "step": torch.zeros((), dtype=torch.int32, device=_device(params))}
@@ -94,9 +108,9 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             vh = v_new / bc2
             pv = _value(p)
             delta = mh / (torch.sqrt(vh) + eps) + weight_decay * pv.to(state_dtype)
-            p.copy_((pv.to(state_dtype) - lr * delta).to(pv.dtype))
-            m.copy_(m_new)
-            v.copy_(v_new)
+            _assign(p, (pv.to(state_dtype) - lr * delta).to(pv.dtype))
+            _assign(m, m_new)
+            _assign(v, v_new)
 
         _tree_map(upd, params, grads, state["mu"], state["nu"], is_leaf=is_param)
         state["step"] = step
@@ -110,12 +124,13 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8, weight_decay=0.0) -> Opt
     1-D: O(n + m) state instead of O(nm) (Shazeer & Stern 2018)."""
     def init(params):
         def f(p):
-            shape, dev = tuple(p.shape), p.device
+            shape, sh = tuple(p.shape), leaf_sharding(p)
             if len(shape) >= 2:
-                return {"vr": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
-                        "vc": torch.zeros(shape[:-2] + shape[-1:], dtype=torch.float32,
-                                          device=dev)}
-            return {"v": torch.zeros(shape, dtype=torch.float32, device=dev)}
+                def fac(dim, sub):
+                    return zeros_for(p, sub, torch.float32,
+                                     sh and drop_dim(sh, dim, len(shape)))
+                return {"vr": fac(-1, shape[:-1]), "vc": fac(-2, shape[:-2] + shape[-1:])}
+            return {"v": zeros_for(p, shape, torch.float32)}
         return {"f": _tree_map(f, params, is_leaf=is_param),
                 "step": torch.zeros((), dtype=torch.int32, device=_device(params))}
 
@@ -132,17 +147,17 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8, weight_decay=0.0) -> Opt
                 vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
                 denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
                 u = g32 / torch.sqrt((vr / denom)[..., None] * vc[..., None, :] + eps)
-                s["vr"].copy_(vr)
-                s["vc"].copy_(vc)
+                _assign(s["vr"], vr)
+                _assign(s["vc"], vc)
             else:
                 v = beta * s["v"] + (1 - beta) * g2
                 u = g32 / torch.sqrt(v + eps)
-                s["v"].copy_(v)
+                _assign(s["v"], v)
             rms = torch.sqrt(torch.mean(u * u) + eps)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             pv = _value(p)
             delta = u + weight_decay * pv.to(torch.float32)
-            p.copy_((pv.to(torch.float32) - lr * delta).to(pv.dtype))
+            _assign(p, (pv.to(torch.float32) - lr * delta).to(pv.dtype))
 
         _tree_map(upd, params, grads, state["f"], is_leaf=is_param)
         state["step"] = step
@@ -153,8 +168,7 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8, weight_decay=0.0) -> Opt
 
 def sgdm(momentum=0.9, weight_decay=0.0) -> Optimizer:
     def init(params):
-        return {"mu": _tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                      device=p.device), params,
+        return {"mu": _tree_map(lambda p: zeros_for(p, p.shape, torch.float32), params,
                                 is_leaf=is_param),
                 "step": torch.zeros((), dtype=torch.int32, device=_device(params))}
 
@@ -163,8 +177,8 @@ def sgdm(momentum=0.9, weight_decay=0.0) -> Optimizer:
         def upd(p, g, m):
             pv = _value(p)
             m_new = momentum * m + g.to(torch.float32) + weight_decay * pv.to(torch.float32)
-            p.copy_((pv.to(torch.float32) - lr * m_new).to(pv.dtype))
-            m.copy_(m_new)
+            _assign(p, (pv.to(torch.float32) - lr * m_new).to(pv.dtype))
+            _assign(m, m_new)
 
         _tree_map(upd, params, grads, state["mu"], is_leaf=is_param)
         state["step"] = state["step"] + 1

@@ -12,9 +12,15 @@ Counterpart of ``repro/train/trainer.py``:
   exponentially weighted mean and variance, reported to a callback.
 
 Each step ends with a device synchronise before its clock stops, so the
-z-score reads the step's time on the card, not its launch time. The
-reference's elastic restore onto another mesh (``mesh=``, ``rules=``)
-waits for the sharding rules, ROADMAP.md item A15.3.
+z-score reads the step's time on the card, not its launch time.
+
+On a mesh (``mesh=``, ``rules=``; every rank builds the same Trainer) the
+state is placed by ``place_train_state``, each step runs under
+``use_rules(rules)`` with gradients at their parameters' shardings, and a
+batch that is not yet a DTensor is the global batch, the same on every
+rank, placed by ``batch_pspecs``. A save gathers every leaf and rank 0
+writes it; ``restore`` places each leaf at the state's sharding, which is
+the elastic restore when the checkpoint came from another mesh.
 """
 from __future__ import annotations
 
@@ -32,8 +38,10 @@ from repro_torch.checkpoint.checkpoint import (latest_step, load_checkpoint, sav
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.falkon import resolve_device
 from repro_torch.distributed.compression import _tree_map
+from repro_torch.distributed.mesh import NamedSharding, placements_for, use_rules
 from repro_torch.optim.optimizers import is_param
-from .steps import TrainConfig, TrainState, init_train_state, make_train_step, state_tree
+from .steps import (TrainConfig, TrainState, batch_pspecs, init_train_state, make_train_step,
+                    param_shardings, place_train_state, state_shardings, state_tree)
 
 
 @dataclasses.dataclass
@@ -50,32 +58,42 @@ class Trainer:
     """Train ``cfg`` under ``tcfg``, checkpointing per ``rcfg``. Without
     ``state`` the model is drawn from seed 0 on ``device`` (the card unless
     the caller asks for the CPU) and the latest checkpoint under
-    ``rcfg.ckpt_dir``, if any, is restored into it."""
+    ``rcfg.ckpt_dir``, if any, is restored into it. With ``mesh`` and
+    ``rules`` (an ``AxisRules`` on that mesh) the state, given or drawn,
+    is placed on the mesh."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, rcfg: TrainerConfig, *,
                  mesh=None, rules=None, state: TrainState | None = None,
                  straggler_cb: Callable[[int, float, float], None] | None = None,
                  device: str | torch.device = "cuda"):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError("Trainer(mesh=..., rules=...): the sharding rules are "
-                                      "not ported (ROADMAP.md item A15.3)")
+        if (mesh is None) != (rules is None) or (rules is not None and rules.mesh is not mesh):
+            raise ValueError("Trainer: give mesh and rules together, rules on that mesh")
         self.cfg, self.tcfg, self.rcfg = cfg, tcfg, rcfg
+        self.mesh, self.rules = mesh, rules
         self.straggler_cb = straggler_cb
         self.straggler_events: list[tuple[int, float]] = []
         self.step_seconds: list[float] = []      # each fitted step's synchronised time
         self._pending_save = None
         self.preempted = False
-        self.step_fn = make_train_step(cfg, tcfg)
 
-        if state is not None:
-            self.state = state
-        else:
+        fresh = state is None
+        if fresh:
             dev = resolve_device(device)
-            self.state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, tcfg)
-            last = latest_step(rcfg.ckpt_dir)
-            if last is not None:
-                self.restore(last)
+            state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, tcfg)
+        if mesh is not None:
+            state = place_train_state(state, cfg, tcfg, rules)
+            step_fn = make_train_step(cfg, tcfg, param_shardings(state.params, cfg))
+
+            def wrapped(st, batch):     # refers to no Trainer: no cycle to hold a state
+                with use_rules(rules):
+                    return step_fn(st, batch)
+            self.step_fn = wrapped
+        else:
+            self.step_fn = make_train_step(cfg, tcfg)
+        self.state = state
         self.device = self.state.step.device
+        if fresh and (last := latest_step(rcfg.ckpt_dir)) is not None:
+            self.restore(last)
 
     # -- fault tolerance --------------------------------------------------
     def save(self, blocking: bool | None = None):
@@ -92,6 +110,8 @@ class Trainer:
         if self._pending_save is not None:
             self._pending_save.join()
             self._pending_save = None
+        if self.mesh is not None:     # rank 0 writes; the others wait for it
+            torch.distributed.barrier()
 
     def _gc(self):
         root = self.rcfg.ckpt_dir
@@ -104,12 +124,15 @@ class Trainer:
 
     def restore(self, step: int | None = None, shardings=None):
         """Load a checkpoint (the latest without ``step``) into the state's
-        tensors, in place. Returns the step."""
+        tensors, in place, each leaf at ``shardings`` (default: the state's
+        own). Returns the step."""
         self._wait_save()
         step = step if step is not None else latest_step(self.rcfg.ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint to restore under {self.rcfg.ckpt_dir}")
         like = state_tree(self.state, self.cfg)
+        if shardings is None and self.mesh is not None:
+            shardings = state_shardings(self.state, self.cfg)
         loaded, _ = load_checkpoint(step_dir(self.rcfg.ckpt_dir, step), like,
                                     shardings=shardings)
         with torch.no_grad():
@@ -121,14 +144,26 @@ class Trainer:
         self.preempted = True
 
     # -- loop --------------------------------------------------------------
+    def _place(self, batch: dict) -> dict:
+        """The batch's arrays as tensors on the state's device; on a mesh, a
+        plain array (the global batch) placed by ``batch_pspecs``."""
+        from torch.distributed.tensor import DTensor
+        out = {k: v if isinstance(v, DTensor) else torch.as_tensor(v).to(self.device)
+               for k, v in batch.items()}
+        if self.mesh is not None:
+            plain = {k: v for k, v in out.items() if not isinstance(v, DTensor)}
+            for k, spec in batch_pspecs(self.cfg, plain, self.rules).items():
+                out[k] = NamedSharding(self.mesh, placements_for(self.mesh, spec),
+                                       spec).place(plain[k])
+        return out
+
     def fit(self, data: Iterator[dict], steps: int) -> list[dict]:
         history = []
         ewma_t, ewma_v = None, 0.0
         for i, batch in enumerate(data):
             if i >= steps or self.preempted:
                 break
-            batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
-                     if k != "step"}
+            batch = self._place({k: v for k, v in batch.items() if k != "step"})
             t0 = time.perf_counter()
             self.state, metrics = self.step_fn(self.state, batch)
             if self.device.type == "cuda":

@@ -273,7 +273,13 @@ def test_port_is_jax_free():
             "repro_torch.distributed, repro_torch.launch.mesh, repro_torch.data.pipeline, "
             "repro_torch.configs, repro_torch.models, repro_torch.models.layers, "
             "repro_torch.models.ssm, repro_torch.models.params, repro_torch.optim, "
-            "repro_torch.checkpoint, repro_torch.train, repro_torch.launch.train; "
+            "repro_torch.checkpoint, repro_torch.train, repro_torch.launch.train, "
+            "repro_torch.distributed.mesh, repro_torch.models.model, repro_torch.train.steps, "
+            "repro_torch.train.trainer, repro_torch.checkpoint.checkpoint, "
+            "repro_torch.optim.optimizers, repro_torch.distributed.compression; "
+            "from repro_torch.launch.mesh import make_production_mesh; "
+            "from repro_torch.distributed.mesh import AxisRules, lshard, use_rules; "
+            "from repro_torch.train.steps import place_train_state, param_shardings; "
             "from repro_torch.data import token_stream, TokenStreamConfig; "
             "from repro_torch.launch.serve import serve_lm; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

@@ -161,16 +161,24 @@ def test_batch_sample_shapes():
 
 
 def test_unported_lm_entry_points_refuse():
-    """Each unported part of A15 refuses, naming its sub-item (training,
-    A15.2, is ported: its launcher refuses only ``--mesh``, A15.3)."""
-    from repro_torch.launch import dryrun, train
+    """The unported part of A15, the dry run (A15.4), refuses, naming its
+    sub-item; the spec functions of the sharding rules (A15.3) return the
+    reference's specs, which replicate everything without a mesh."""
+    from repro.distributed.mesh import AxisRules as JAxisRules
+    from repro.models import cache_pspecs as j_cache_pspecs
+    from repro.models import model_param_pspecs as j_model_param_pspecs
+    from repro_torch.distributed.mesh import AxisRules
+    from repro_torch.launch import dryrun
     from repro_torch.models import cache_pspecs, model_param_pspecs
     from repro_torch.models.params import param_pspecs
-    cfg = tc.reduced_config("gemma3-1b")
-    for fn, item in ((lambda: model_param_pspecs(cfg, None), "A15.3"),
-                     (lambda: cache_pspecs(cfg, 2, 8, None), "A15.3"),
-                     (lambda: param_pspecs({}, None), "A15.3"),
-                     (lambda: train.main(["--mesh", "2x2", "--device", "cpu"]), "A15.3"),
-                     (lambda: dryrun.main([]), "A15.4")):
-        with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-            fn()
+    cfg, jcfg = tc.reduced_config("gemma3-1b"), jc.reduced_config("gemma3-1b")
+    rules, jrules = AxisRules(mesh=None), JAxisRules(mesh=None)
+    for got, want in ((model_param_pspecs(cfg, rules), j_model_param_pspecs(jcfg, jrules)),
+                      (cache_pspecs(cfg, 2, 8, rules), j_cache_pspecs(jcfg, 2, 8, jrules))):
+        got_leaves = jax.tree.leaves(got, is_leaf=lambda x: isinstance(x, tuple))
+        want_leaves = jax.tree.leaves(want, is_leaf=lambda x: isinstance(x, tuple))
+        assert len(got_leaves) == len(want_leaves) > 0
+        assert all(tuple(g) == tuple(w) == () for g, w in zip(got_leaves, want_leaves))
+    assert param_pspecs({}, rules) == {}
+    with pytest.raises(NotImplementedError, match=r"A15\.4"):
+        dryrun.main([])

@@ -285,25 +285,46 @@ def test_state_structs_serve_step_and_refusals():
     shapes = lambda t: [(tuple(x.shape), x.dtype) for x in tree_leaves(t)]  # noqa: E731
     assert shapes(structs.opt_state) == shapes(state.opt_state)
     assert shapes(structs.residuals) == shapes(state.residuals)
-    for fn in (lambda: train_state_pspecs(cfg, tcfg, None),
-               lambda: batch_pspecs(cfg, {}, None),
-               lambda: Trainer(cfg, tcfg, TrainerConfig(), mesh=object(), device="cpu"),
-               lambda: make_train_step(cfg, tcfg, grad_shardings={})):
-        with pytest.raises(NotImplementedError, match="A15.3"):
-            fn()
+    # without a mesh every spec replicates, as the reference's
+    from repro_torch.distributed.mesh import AxisRules
+    rules = AxisRules(mesh=None)
+    specs = train_state_pspecs(cfg, tcfg, rules)
+    assert specs.step == () and specs.opt_state["step"] == ()
+    assert set(specs.opt_state) == {"f", "step"} and specs.residuals
+    assert batch_pspecs(cfg, {"tokens": torch.empty(4, 8, device="meta")}, rules) == {"tokens": ()}
+    with pytest.raises(ValueError, match="mesh and rules together"):
+        Trainer(cfg, tcfg, TrainerConfig(), mesh=object(), device="cpu")
+    assert make_train_step(cfg, tcfg, grad_shardings=None) is not None
     serve = make_serve_step(cfg)
     cache = tm.init_cache(cfg, 2, 8, device="cpu")
     logits, cache = serve(state.params, cache, {"token": torch.tensor([1, 2])})
     assert logits.shape == (2, cfg.padded_vocab) and int(cache["pos"]) == 1
 
 
-def test_launch_train_reduced_on_cpu(tmp_path, capsys):
+def test_launch_train_reduced_on_cpu(tmp_path, capsys, monkeypatch):
     from repro_torch.launch import train as launch
     before = signal.getsignal(signal.SIGTERM)
     out = launch.main(["--arch", "mamba2-370m", "--reduced", "--steps", "3", "--batch", "2",
                        "--seq", "16", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     assert len(out["history"]) == 3 and signal.getsignal(signal.SIGTERM) is before
     assert "3 steps; loss" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A15.3"):
-        launch.main(["--reduced", "--mesh", "2x2", "--device", "cpu"])
+    # --mesh on a one-rank gloo world that the launcher starts from torchrun's
+    # environment variables
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                     WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    try:
+        out = launch.main(["--arch", "qwen2-72b", "--reduced", "--mesh", "1x1", "--steps", "2",
+                           "--batch", "2", "--seq", "16", "--device", "cpu", "--ckpt-dir",
+                           str(tmp_path / "mesh")])
+        assert out["trainer"].mesh.mesh_dim_names == ("data", "model")
+        assert len(out["history"]) == 2 and all(np.isfinite(h["loss"]) for h in out["history"])
+    finally:
+        dist.destroy_process_group()
     assert sys.modules["repro_torch.launch.train"] is launch
