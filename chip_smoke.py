@@ -264,6 +264,24 @@ result line:
                of SHARD_WORLD NCCL ranks on the one card (beside (a)'s
                save and restore), reported. Plain
                torch ops and DTensor: no kernel of the port.
+   dryrun   — the dry-run and roofline tools (A15.4): (a) ``python -m
+               repro_torch.launch.dryrun`` for gemma3-1b at train_4k,
+               prefill_32k and decode_32k on the single-pod mesh and for the
+               FALKON solver cell, each its own process, all started
+               together, on the card's torch (a fake world of 256 ranks, meta
+               tensors, counted on rank 0): each cell's flops, bytes and
+               collective bytes per device, memory, fits_hbm, bottleneck and
+               seconds; a status other than "ok" fails; meanwhile on the card
+               (b) gemma3-1b's train step as train (b) runs it, counted once by
+               ``op_cost.analyze`` and then timed over DRYRUN_STEPS steps:
+               max(compute, memory) of the count at most the measured step,
+               the useful flops ratio in (0, 1], the counted peak within
+               DRYRUN_MEM_BAND of ``max_memory_allocated``; (c) the FALKON
+               cell at SUSY's shape on one rank (the "torch" backend's plain
+               ops): its compute term at most the main fit's solve (47 B1
+               launches), its memory term printed beside it; at
+               DRYRUN_SMALL_N rows the cell's bound at most the same solve
+               timed on the card on the "torch" backend.
 7. times    — the full-size sweeps (SUSY: B1; MillionSongs: B1 and B4) and
                the predict-shape kernel matmul against float32 and float64
                twins; the MillionSongs fit's blocked T and A against
@@ -592,6 +610,23 @@ SHARD_MOE_BATCH = (4, 1024)
 #: own process, given this long
 SHARD_WORLD = 4
 SHARD_WORLD_TIMEOUT = 90
+#: dryrun (a): the cells of ``repro_torch.launch.dryrun`` run on the card's
+#: torch, each its own process (all started together), on the single-pod
+#: mesh, and the FALKON solver cell; each process is given this long
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT = 240
+#: dryrun (b): gemma3-1b's train step as train (b) runs it (GEMMA_TRAIN's
+#: batch), counted once, then timed over this many steps; the counted peak
+#: (storages alive at once) against ``max_memory_allocated`` over the
+#: counted step, within this relative band (the allocator's rounding and
+#: cuBLAS's workspace are the difference)
+DRYRUN_STEPS = 3
+DRYRUN_MEM_BAND = 0.10
+#: dryrun (c): the FALKON cell at SUSY's shape on one rank, counted on the
+#: "torch" backend; and at this many rows, counted and timed on the card on
+#: that backend (the implementation the count reads)
+DRYRUN_SMALL_N = 400_000
+DRYRUN_BLOCK = 8192
 SOURCE = "src/repro_torch/kernels/csrc/kernel_matvec.cu"
 SOURCE_BLOCKED = "src/repro_torch/kernels/csrc/blocked_cholesky.cu"
 DEVICE = "cuda"
@@ -3981,6 +4016,201 @@ def shard_worker(torch, args) -> int:
     return 0
 
 
+def phase_dryrun(torch, args, main, card: str) -> None:
+    """The dry-run and roofline tools (A15.4; see the module doc, phase
+    ``dryrun``): (a) the cells run in processes of their own while (b) and
+    (c) use the card in this one."""
+    import tempfile
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = dryrun_start(Path(d))
+        try:
+            dryrun_step(torch, args, card)
+            dryrun_solve(torch, args, main, card)
+        finally:
+            dryrun_report(procs, Path(d), card)
+    say(f"[dryrun] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def dryrun_start(d: Path) -> list:
+    """(a) One ``python -m repro_torch.launch.dryrun`` a cell, all started
+    together, each writing its artifact into ``d``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "single", "--force",
+            "--out", str(d)]
+    cmds = [base + ["--arch", LM_ARCH, "--shape", s] for s in DRYRUN_SHAPES]
+    cmds.append(base + ["--falkon"])
+    procs = []
+    for i, cmd in enumerate(cmds):
+        with open(d / f"cell{i}.log", "w") as fh:
+            procs.append((subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT, env=env),
+                          time.perf_counter(), d / f"cell{i}.log"))
+    return procs
+
+
+def dryrun_report(procs: list, d: Path, card: str) -> None:
+    """(a) Wait for every cell within DRYRUN_TIMEOUT of its start (killing
+    what is left), print each artifact's per-device figures, and fail on a
+    process that did not exit 0 or a cell whose status is not "ok"."""
+    codes = []
+    for p, t0, log in procs:
+        try:
+            p.wait(timeout=max(DRYRUN_TIMEOUT - (time.perf_counter() - t0), 1.0))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        codes.append((p.returncode, time.perf_counter() - t0))
+        tail = log.read_text().splitlines()[-3:]
+        say(f"[dryrun] (a) {log.stem}: exit {p.returncode}: " + " | ".join(tail))
+    cells = [(f"{LM_ARCH}__{s}__single.json") for s in DRYRUN_SHAPES]
+    cells.append("falkon-solver__solve__single.json")
+    bad = []
+    for name, (code, secs) in zip(cells, codes):
+        path = d / name
+        res = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+        if code != 0 or res.get("status") != "ok":
+            bad.append(f"{name}: exit {code}, status {res.get('status')} {res.get('error', '')}")
+            continue
+        r, mem = res["roofline"], res["memory"]
+        say(f"[dryrun] (a) {card}: {res['arch']} x {res['shape']} x {res['mesh']} "
+            f"({res['chips']} ranks, counted on rank 0 in {res['compile_s']} s; its process "
+            f"ended within {secs:.1f} s): per device flops {r['flops_per_device']:.6e}, bytes "
+            f"{r['bytes_per_device']:.6e}, collective bytes "
+            + json.dumps({k: f"{v:.6e}" for k, v in r["collective_bytes"].items()})
+            + f"; memory total {mem['total_per_device'] / 1e9:.3f} GB (arguments "
+            f"{mem['argument_size_in_bytes'] / 1e9:.3f}, temp {mem['temp_size_in_bytes'] / 1e9:.3f}"
+            f"), fits_hbm {res['fits_hbm']}; compute {r['compute_s']:.6e} s, memory "
+            f"{r['memory_s']:.6e} s, collective {r['collective_s']:.6e} s: bottleneck "
+            f"{r['bottleneck']}; useful flops ratio {r['useful_flops_ratio']:.4f}")
+    check(not bad, "dry-run cells failed: " + "; ".join(bad))
+
+
+def dryrun_step(torch, args, card: str) -> None:
+    """(b) The roofline of gemma3-1b's train step (train (b)'s step: bf16
+    AdamW under remat, GEMMA_TRAIN's batch, unsharded) counted on the card
+    by ``op_cost.analyze``, against the synchronised steps that follow."""
+    from repro_torch.configs import get_config
+    from repro_torch.roofline import (PEAK_FLOPS, derive_roofline, memory_report,
+                                      train_model_flops)
+    from repro_torch.roofline.op_cost import analyze_with_result
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    B, S, _ = GEMMA_TRAIN
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=100)
+    held = torch.cuda.memory_allocated()
+    g = torch.Generator(device=DEVICE).manual_seed(args.seed)
+    state = init_train_state(g, cfg, tcfg)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    del toks
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cost, (state, _) = analyze_with_result(step, state, batch)
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    times = []
+    for _ in range(DRYRUN_STEPS):
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    roof = derive_roofline(cost, chips=1, model_flops=train_model_flops(cfg, B * S))
+    mem = memory_report(cost)
+    bound = max(roof.compute_s, roof.memory_s)
+    band = mem["total_per_device"] / peak - 1.0
+    say(f"[dryrun] (b) {card}: {cfg.name} train step (bf16 AdamW, remat {cfg.remat!r}, "
+        f"{B} x {S} tokens, one card), counted by op_cost.analyze in {t_count:.3f} s "
+        f"({cost.ops} ops): flops {cost.flops:.6e}, bytes {cost.bytes:.6e}; compute "
+        f"{1e3 * roof.compute_s:.3f} ms at {PEAK_FLOPS:.4g} FLOP/s, memory "
+        f"{1e3 * roof.memory_s:.3f} ms at {HBM_RATE:.4g} B/s: bound {1e3 * bound:.3f} ms "
+        f"({roof.bottleneck}; PERF.md's hand-worked bound ~56 ms); useful flops ratio "
+        f"{roof.useful_flops_ratio:.4f} (model flops 6 N D = {roof.model_flops:.6e}); the "
+        f"next {DRYRUN_STEPS} steps (synchronised) {[round(1e3 * t, 3) for t in times]} ms, "
+        f"median {1e3 * step_s:.3f} ms: bound / step {bound / step_s:.4f}")
+    say(f"[dryrun] (b) {card}: counted memory: arguments {mem['argument_size_in_bytes'] / 2**30:.3f}"
+        f" GiB, aliased {mem['alias_size_in_bytes'] / 2**30:.3f}, temp "
+        f"{mem['temp_size_in_bytes'] / 2**30:.3f}, total {mem['total_per_device'] / 2**30:.3f} "
+        f"GiB; max_memory_allocated over the counted step {peak / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held before the state (the state and batch "
+        f"{(base - held) / 2**30:.3f} GiB): counted / measured - 1 = {band:+.4f} (band "
+        f"{DRYRUN_MEM_BAND:g})")
+    check(bound <= step_s, f"the derived bound {bound:.4f} s exceeds the measured step "
+          f"{step_s:.4f} s")
+    check(0.0 < roof.useful_flops_ratio <= 1.0,
+          f"useful flops ratio {roof.useful_flops_ratio} outside (0, 1]")
+    check(abs(band) <= DRYRUN_MEM_BAND, f"counted peak {mem['total_per_device']} B is "
+          f"{band:+.4f} from max_memory_allocated {peak} B")
+    check(np.isfinite(float(met["loss"])), "non-finite loss after the counted steps")
+    del state, batch, step, met
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_solve(torch, args, main, card: str) -> None:
+    """(c) The FALKON cell at SUSY's shape on one rank (``dryrun.falkon_cost``
+    on the "torch" backend: plain ops on meta tensors; t = 20, no cond
+    estimate), its terms at the fp32 peak against the main fit's measured
+    solve (47 B1 launches); then at DRYRUN_SMALL_N rows against the same
+    solve timed on the card on the "torch" backend."""
+    from repro_torch.core import falkon_solve, make_preconditioner
+    from repro_torch.launch.dryrun import falkon_cost
+    from repro_torch.ops import get_ops
+    from repro_torch.roofline import PEAK_FLOPS_FP32, derive_roofline
+
+    task, kernel, centers = main["task"], main["kernel"], main["centers"]
+    M, d, t = centers.shape[0], centers.shape[1], 20
+    ops = get_ops("torch", kernel, block_size=DRYRUN_BLOCK)
+
+    def roof(n):
+        t0 = time.perf_counter()
+        cost = falkon_cost(ops, n, d, M, t, block_size=DRYRUN_BLOCK)
+        r = derive_roofline(cost, chips=1, model_flops=(t + 2) * 4.0 * n * M * d,
+                            peak_flops=PEAK_FLOPS_FP32)
+        return r, cost, time.perf_counter() - t0
+
+    r, cost, secs = roof(args.n)
+    solve_s = main["times"]["solve"]
+    say(f"[dryrun] (c) {card}: the FALKON cell at n={args.n}, d={d}, M={M}, t={t} on one "
+        f"rank, counted on the 'torch' backend in {secs:.1f} s ({cost.ops} ops): flops "
+        f"{r.flops_per_device:.6e}, bytes {r.bytes_per_device:.6e}; compute "
+        f"{r.compute_s:.4f} s at {PEAK_FLOPS_FP32:.4g} FLOP/s, memory {r.memory_s:.4f} s: "
+        f"bound {max(r.compute_s, r.memory_s):.4f} s ({r.bottleneck}); the main fit's solve "
+        f"(47 B1 launches) {solve_s:.4f} s: compute / solve {r.compute_s / solve_s:.4f}, "
+        f"bound / solve {max(r.compute_s, r.memory_s) / solve_s:.4f} (the plain ops write "
+        f"every K(X, C) strip to memory; B1 keeps it on chip)")
+    check(r.compute_s <= solve_s, f"the cell's compute term {r.compute_s:.4f} s exceeds "
+          f"the measured solve {solve_s:.4f} s")
+
+    n = DRYRUN_SMALL_N
+    r, cost, secs = roof(n)
+    X, y = main["X"][:n], main["y"][:n]
+    pre = make_preconditioner(ops.gram(centers, centers), task.lam, n)
+    timed = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = falkon_solve(X, y, centers, pre, kernel, task.lam, t, ops=ops,
+                          estimate_cond=False, tol=0.0)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+    bound = max(r.compute_s, r.memory_s)
+    say(f"[dryrun] (c) {card}: at n={n} the cell counted in {secs:.1f} s: compute "
+        f"{r.compute_s:.4f} s, memory {r.memory_s:.4f} s: bound {bound:.4f} s; the same solve "
+        f"on the card on the 'torch' backend {[round(v, 4) for v in timed]} s: bound / solve "
+        f"{bound / min(timed):.4f}")
+    check(bool(torch.isfinite(st.alpha).all()), "non-finite alpha from the 'torch' solve")
+    check(bound <= min(timed), f"the derived bound {bound:.4f} s exceeds the 'torch' "
+          f"backend's solve {min(timed):.4f} s")
+    del X, y, st, pre
+
+
 def lm_close(torch, got, ref, rtol: float, atol: float) -> tuple[float, float]:
     """(max |got - ref|, max |got - ref| / (atol + rtol |ref|)): the second
     is <= 1 where ``allclose`` holds."""
@@ -4736,6 +4966,8 @@ def main(argv=None) -> int:
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the training phase")
     phase_shard(torch, args, card)
     say(f"[time] {time.perf_counter() - t_start:.1f} s after the sharding phase")
+    phase_dryrun(torch, args, main_res, card)
+    say(f"[time] {time.perf_counter() - t_start:.1f} s after the dry-run phase")
     kernels = phase_times(torch, main_res, msd_res, bf16_rows, path_res)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, {build_s:.1f} s of it the build")
     say(f"card: {card}")

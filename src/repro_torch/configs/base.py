@@ -187,10 +187,11 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> dict[str, torch.Tensor]:
-    """Model inputs for one (arch x shape) cell, as ``meta`` tensors: the
-    shapes and dtypes of the real inputs, no allocation."""
-    cell = SHAPES[shape]
+def input_specs(cfg: ModelConfig, shape: "str | ShapeCell") -> dict[str, torch.Tensor]:
+    """Model inputs for one (arch x shape) cell (a name of ``SHAPES`` or a
+    ``ShapeCell``), as ``meta`` tensors: the shapes and dtypes of the real
+    inputs, no allocation."""
+    cell = SHAPES[shape] if isinstance(shape, str) else shape
     B, S = cell.global_batch, cell.seq_len
     i32 = torch.int32
     f = torch_dtype(cfg.dtype)

@@ -260,15 +260,90 @@ def recompute_contexts():
 
 def lshard(x: torch.Tensor, axes: Sequence[str | None]) -> torch.Tensor:
     """Annotate x with logical axes: under active rules a DTensor is
-    redistributed to the placements they give; otherwise x is returned."""
+    redistributed to the placements they give, and so is its gradient in
+    the backward pass (the reference's ``with_sharding_constraint``
+    constrains the cotangent too: without it, DTensor's backward picks its
+    own placements, e.g. folding batch and sequence shards into a strided
+    shard that it plans slowly on a 3-D mesh); otherwise x is returned."""
     from torch.distributed.tensor import DTensor
     rules = current_rules()
     if rules.mesh is None or not isinstance(x, DTensor):
         return x
     sh = rules.sharding_for(x.shape, axes)
-    if tuple(x.placements) == sh.placements:
+    y = x if tuple(x.placements) == sh.placements else x.redistribute(sh.mesh, sh.placements)
+    if y.requires_grad and torch.is_grad_enabled():
+        y.register_hook(lambda g: g.redistribute(sh.mesh, sh.placements)
+                        if isinstance(g, DTensor) and tuple(g.placements) != sh.placements
+                        else g)
+    return y
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """x whole on every rank: a DTensor redistributed to ``Replicate()`` on
+    every mesh dimension; anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or all(isinstance(p, Replicate) for p in x.placements):
         return x
-    return x.redistribute(sh.mesh, sh.placements)
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def local_apply(fn, args: Sequence, axes: Sequence, out_axes: Sequence):
+    """``fn(*args)`` on this rank's shards, under active rules when an
+    argument is a DTensor: each tensor argument comes to the placements the
+    rules give its logical ``axes`` (an entry of ``axes`` is None for a
+    non-tensor argument; a plain tensor counts as replicated) and ``fn``
+    runs on the local shards; each output (``fn`` returns a tuple when
+    ``out_axes`` is a list of axes tuples) is wrapped back as a DTensor,
+    sharded where its logical axes name the mesh dimensions the inputs'
+    axes of the same name resolved to. For computations independent along
+    the sharded axes (attention over batch rows and heads, the SSD scan
+    over batch rows and heads), each rank computes its block of the
+    unsharded result with the same ops, and DTensor's propagation, which
+    folds two sharded dimensions into a strided shard in einsums, is not
+    asked. An argument whole along a mesh dimension that splits another
+    (the scan's B and C, whole over the heads) gets its gradient as the sum
+    over that dimension's ranks."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    rules = current_rules()
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)), None)
+    if rules.mesh is None or mesh is None:
+        return fn(*args)
+    where: dict[str, set] = {}
+    placed = []
+    for a, ax in zip(args, axes):
+        if ax is None:
+            placed.append((a, None))
+            continue
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        placements = rules.sharding_for(a.shape, ax).placements
+        for d, p in enumerate(placements):
+            if isinstance(p, Shard):
+                where.setdefault(ax[p.dim], set()).add(d)
+        placed.append((a.redistribute(mesh, placements), placements))
+    split = set().union(*where.values()) if where else set()
+    local = []
+    for a, placements in placed:
+        if placements is None:
+            local.append(a)
+            continue
+        # an argument whole along a mesh dimension that splits the others
+        # meets only this rank's block there: its local gradient is a
+        # partial sum over that dimension's ranks
+        grad = [Partial() if d in split and isinstance(p, Replicate) else p
+                for d, p in enumerate(placements)]
+        local.append(a.to_local(grad_placements=grad))
+    out = fn(*local)
+    single = not isinstance(out, tuple)
+    outs, oaxes = ((out,), (out_axes,)) if single else (out, out_axes)
+    wrapped = []
+    for t, ax in zip(outs, oaxes):
+        placements = [Replicate()] * mesh.ndim
+        for i, name in enumerate(ax):
+            for d in where.get(name, ()) if name is not None else ():
+                placements[d] = Shard(i)
+        wrapped.append(DTensor.from_local(t, mesh, placements, run_check=False))
+    return wrapped[0] if single else tuple(wrapped)
 
 
 def leaf_sharding(leaf) -> NamedSharding | None:
@@ -304,13 +379,29 @@ def drop_dim(sharding: NamedSharding, dim: int, ndim: int) -> NamedSharding:
 
 def zeros_for(leaf, shape, dtype: torch.dtype, sharding: NamedSharding | None = None):
     """Zeros of ``shape`` beside a parameter leaf: on its device, or, for a
-    leaf on a mesh, a DTensor at ``sharding`` (default the leaf's own)."""
+    leaf on a mesh, a DTensor at ``sharding`` (default the leaf's own), its
+    shard on the leaf's device (``meta`` for a dry run's state)."""
     sharding = sharding or leaf_sharding(leaf)
     if sharding is None:
         return torch.zeros(shape, dtype=dtype, device=leaf.device)
-    from torch.distributed.tensor import zeros
-    return zeros(tuple(shape), dtype=dtype, device_mesh=sharding.mesh,
-                 placements=list(sharding.placements))
+    return sharded_zeros(shape, dtype, sharding, leaf.device)
+
+
+def sharded_zeros(shape, dtype: torch.dtype, sharding: NamedSharding,
+                  device: str | torch.device) -> torch.Tensor:
+    """Zeros of the global ``shape`` as a DTensor at ``sharding``, only this
+    rank's shard allocated, on ``device`` (``meta`` allocates nothing).
+    The sharded dimensions divide their mesh dimensions (``spec_for``'s
+    rule)."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = list(shape)
+    for size, p in zip(sharding.mesh.shape, sharding.placements):
+        if isinstance(p, Shard):
+            local[p.dim] //= size
+    t = torch.zeros(local, dtype=dtype, device=device)
+    return DTensor.from_local(t, sharding.mesh, list(sharding.placements), run_check=False,
+                              shape=torch.Size(shape), stride=torch.empty(shape,
+                                                                          device="meta").stride())
 
 
 def unshard(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.distributed.mesh import (PartitionSpec as P, current_rules, data_axes,
-                                          lshard, named_sizes, placements_for)
+                                          local_apply, lshard, named_sizes, placements_for,
+                                          replicated, unshard)
 from .params import PD, ParamModule
 
 Tensor = torch.Tensor
@@ -194,10 +195,15 @@ def _moe_local(p: MoE, x: Tensor, cfg: ModelConfig) -> Tensor:
     T = B * S
     # capacity over this call's tokens: prefill and decode drop differently
     C = max(1, int(T * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
-    xe, keep, slot, gate = _dispatch(x.reshape(T, D), p.router, cfg, C)
+    # on a mesh every rank routes all the call's tokens (decode's few):
+    # DTensor's rule for the dispatch's scatter of sharded tokens misplans
+    # it (torch 2.11)
+    xe, keep, slot, gate = _dispatch(replicated(x.reshape(T, D)), replicated(p.router), cfg, C)
     xe = lshard(xe, ("experts", "expert_cap", None))
     ye = lshard(_experts(xe, p.w_gate, p.w_up, p.w_down, cfg), ("experts", "expert_cap", None))
-    return _combine(ye, keep, slot, gate).reshape(B, S, D)
+    # the combine reads any expert's slots: ye whole on every rank (DTensor
+    # would replicate it too, from the strided shard its flattening makes)
+    return _combine(replicated(ye), keep, slot, gate).reshape(B, S, D)
 
 
 def _moe_sharded(p: MoE, x: Tensor, cfg: ModelConfig, mesh, mp: int, dp: tuple) -> Tensor:
@@ -287,12 +293,58 @@ def _mask(si: Tensor, sj: Tensor, causal: bool, window: int) -> Tensor:
 def _masked_write(cache: Tensor, new: Tensor, idx: Tensor) -> Tensor:
     """Write ``new`` (B, 1, ...) into ``cache`` (B, Smax, ...) at position
     ``idx`` (a 0-d tensor on the cache's device), in place."""
+    if _is_dtensor(cache):
+        return _local_seq_write(cache, new, idx)
     return cache.index_copy_(1, idx.reshape(1).long(), new.to(cache.dtype))
 
 
 def _block_write(cache: Tensor, new: Tensor) -> Tensor:
     """Write a length-S block at position 0 (prefill), in place."""
+    if _is_dtensor(cache):
+        return _local_seq_write(cache, new, 0)
     cache[:, :new.shape[1]] = new.to(cache.dtype)
+    return cache
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+@torch.no_grad()
+def _local_seq_write(cache: Tensor, new: Tensor, start) -> Tensor:
+    """The cache writes on a mesh, in place on this rank's shard: ``new``
+    (B, L, ...) at positions [start, start + L) of the cache DTensor's
+    dimension 1 (``start`` an int, or a 0-d tensor with L = 1). ``new``
+    comes to the cache's placements with dimension 1 whole; a rank whose
+    sequence shard holds none of the positions writes nothing (a tensor
+    position: its own entry back). DTensor's in-place ``index_copy_`` and
+    slice assignment on a sequence-sharded cache do not keep the shard."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = cache.device_mesh
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    whole = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in cache.placements]
+    new_l = new.redistribute(mesh, whole).to_local().to(cache.dtype)
+    local = cache.to_local()
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i, p in enumerate(cache.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            shard = shard * mesh.shape[i] + coord[i]
+    n_loc = local.shape[1]
+    s0 = shard * n_loc
+    if isinstance(start, int):
+        a, b = max(start, s0), min(start + new_l.shape[1], s0 + n_loc)
+        if a < b:
+            local[:, a - s0:b - s0] = new_l[:, a - start:b - start]
+        return cache
+    li = start.reshape(1).long() - s0
+    mine = (li >= 0) & (li < n_loc)
+    li = torch.clamp(li, 0, n_loc - 1)
+    old = local.index_select(1, li)
+    keep = mine.reshape((1, 1) + (1,) * (local.ndim - 2))
+    local.index_copy_(1, li, torch.where(keep, new_l, old))
     return cache
 
 
@@ -363,12 +415,76 @@ def _chunked_sdpa_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Te
     return out.transpose(1, 2).to(q.dtype)                           # (B,Sq,H,dv)
 
 
+#: attention's operands and output, (B, S, H, dh): computed on each rank's
+#: block of batch rows and heads (``local_apply``)
+HEADS = ("batch", None, "heads", None)
+
+
 def _self_attend(q, kf, vf, positions, cfg: ModelConfig, window: int) -> Tensor:
     """Train / prefill attention over fresh KV: dense up to
     ``cfg.dense_attn_max_seq`` query rows, chunked above."""
     if q.shape[1] <= cfg.dense_attn_max_seq:
-        return _sdpa(q, kf, vf, _mask(positions, positions, True, window))
-    return _chunked_sdpa(q, kf, vf, positions, positions, True, window, cfg.attn_chunk)
+        mask = _mask(positions, positions, True, window)
+        return local_apply(lambda q, k, v: _sdpa(q, k, v, mask), (q, kf, vf), (HEADS,) * 3,
+                           HEADS)
+    return local_apply(lambda q, k, v: _chunked_sdpa(q, k, v, positions, positions, True,
+                                                     window, cfg.attn_chunk),
+                       (q, kf, vf), (HEADS,) * 3, HEADS)
+
+
+def _project(x: Tensor, w: Tensor, heads: str) -> Tensor:
+    """x (B, S, D) through a (D, H, dh) projection -> (B, S, H, dh). On a
+    mesh each rank projects its batch rows onto its block of heads (the
+    weight gathered whole along D): DTensor's own einsum may shard the
+    flattened H * dh columns at a boundary inside a head, which the
+    (H, dh) view cannot split."""
+    return local_apply(lambda x, w: torch.einsum("bsd,dhk->bshk", x, w), (x, w),
+                       (("batch", None, None), (None, heads, None)),
+                       ("batch", None, heads, None))
+
+
+def _heads_as_cache(q: Tensor, kc: Tensor) -> Tensor:
+    """q (B, 1, Hq, dh) with its heads whole on every rank unless the cache
+    kc (B, S, Hkv, dh) splits its kv heads: G query heads share a kv head,
+    and a head split that is not a kv-head split cannot be regrouped."""
+    from torch.distributed.tensor import DTensor, Shard
+    if isinstance(kc, DTensor) and not any(isinstance(p, Shard) and p.dim == 2
+                                           for p in kc.placements):
+        return unshard(q, 2)
+    return q
+
+
+def _grouped_decode(qg: Tensor, kc: Tensor, vc: Tensor, valid: Tensor, dh: int) -> Tensor:
+    """Decode attention, each kv head against its G query heads: qg
+    (B, 1, Hkv, G, dh) over the cache kc, vc (B, S, Hkv, dh) at the
+    ``valid`` positions -> (B, 1, Hkv, G, dh)."""
+    s = torch.einsum("bqngd,bknd->bngqk", qg, kc).float()
+    s = s / _sqrt(dh)
+    s = torch.where(valid[None, None, None, None, :], s, NEG)
+    w = torch.softmax(s, -1).to(qg.dtype)
+    return torch.einsum("bngqk,bknd->bqngd", w, vc)
+
+
+def _local_kv_heads(fn, qg: Tensor, kc: Tensor, vc: Tensor) -> Tensor:
+    """``fn(qg, kc, vc)`` (``_grouped_decode``'s operands) on this rank's
+    block of batch rows and kv heads, when the cache is a DTensor sharded
+    over them and whole along the sequence: qg comes to the cache's
+    placements (its dimensions 0 and 2 are the cache's batch and kv heads,
+    and a kv head's G query heads are contiguous), the cache's shards are
+    used as they are, and the output, laid out as qg, is wrapped back. So
+    each rank computes its block with the unsharded ops; DTensor's own
+    einsum folds the sharded batch and head dimensions into one strided
+    shard, as in training (``local_apply``). A sequence-sharded cache
+    (flash-decoding) stays with DTensor, whose softmax reduces across the
+    sequence shards."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(kc, DTensor) or any(isinstance(p, Shard) and p.dim not in (0, 2)
+                                          for p in kc.placements):
+        return fn(qg, kc, vc)
+    mesh, placements = kc.device_mesh, tuple(kc.placements)
+    out = fn(qg.redistribute(mesh, placements).to_local(), kc.to_local(),
+             vc.redistribute(mesh, placements).to_local())
+    return DTensor.from_local(out, mesh, placements, run_check=False)
 
 
 def _zero_dummy_heads(o: Tensor, cfg: ModelConfig) -> Tensor:
@@ -413,7 +529,7 @@ def attn_apply(p: Attention, x: Tensor, cfg: ModelConfig, spec: LayerSpec, *,
     cross = spec.kind == "cross"
     window = cfg.sliding_window if spec.kind == "sliding" else 0
 
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    q = _project(x, p.wq, "heads")
     if "bq" in p._pds:
         q = q + p.bq
 
@@ -422,17 +538,18 @@ def attn_apply(p: Attention, x: Tensor, cfg: ModelConfig, spec: LayerSpec, *,
             k, v = cache["k"], cache["v"]          # static image kv
             new_cache = cache
         else:
-            k = torch.einsum("bsd,dhk->bshk", kv_x, p.wk)
-            v = torch.einsum("bsd,dhk->bshk", kv_x, p.wv)
+            k = _project(kv_x, p.wk, "kv_heads")
+            v = _project(kv_x, p.wv, "kv_heads")
             new_cache = {"k": k, "v": v}
         if "q_norm" in p._pds:
             q = rms_norm(q, p.q_norm, cfg.norm_eps)
             k = rms_norm(k, p.k_norm, cfg.norm_eps)
         q = lshard(q, ("batch", None, "heads", None))
-        o = _sdpa(q, _expand_kv(k, G), _expand_kv(v, G), None)
+        o = local_apply(lambda q, k, v: _sdpa(q, k, v, None),
+                        (q, _expand_kv(k, G), _expand_kv(v, G)), (HEADS,) * 3, HEADS)
     else:
-        k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-        v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+        k = _project(x, p.wk, "kv_heads")
+        v = _project(x, p.wv, "kv_heads")
         if "bk" in p._pds:
             k, v = k + p.bk, v + p.bv
         q = rope(q, positions, cfg.rope_theta)
@@ -455,13 +572,11 @@ def attn_apply(p: Attention, x: Tensor, cfg: ModelConfig, spec: LayerSpec, *,
             valid = k_pos <= idx
             if window > 0:
                 valid &= k_pos > idx - window
-            # grouped form: each kv head against its G query heads
-            qg = q.reshape(B, Sq, Hkv, G, dh)
-            s = torch.einsum("bqngd,bknd->bngqk", qg, kc).float()
-            s = s / _sqrt(dh)
-            s = torch.where(valid[None, None, None, None, :], s, NEG)
-            w = torch.softmax(s, -1).to(x.dtype)
-            o = torch.einsum("bngqk,bknd->bqngd", w, vc)
+            # grouped form: each kv head against its G query heads (on a
+            # mesh q's heads split only as the cache's kv heads do)
+            qg = _heads_as_cache(q, kc).reshape(B, Sq, Hkv, G, dh)
+            o = _local_kv_heads(lambda qg, kc, vc: _grouped_decode(qg, kc, vc, valid, dh),
+                                qg, kc, vc)
         else:
             new_cache = None
             o = _self_attend(q, _expand_kv(k, G), _expand_kv(v, G), positions, cfg, window)

@@ -41,11 +41,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, torch_dtype
-from repro_torch.distributed.mesh import PartitionSpec, lshard, recompute_contexts, unshard
+from repro_torch.distributed.mesh import (current_rules, local_apply, lshard, recompute_contexts,
+                                          sharded_zeros, unshard)
 from . import layers as L
 from . import ssm as S
 from .params import (PD, LeafGroup, ParamModule, init_module, init_params, param_pspecs,
-                     param_shape_structs, stack_pds)
+                     param_shape_structs, stack_pds, tree_map)
 
 Tensor = torch.Tensor
 
@@ -126,7 +127,10 @@ def layer_apply(p: Block, x: Tensor, cfg: ModelConfig, spec: LayerSpec, *, posit
     else:
         mix, new_cache = p.mixer(h, cfg, spec, positions=positions, cache=cache,
                                  pos_scalar=pos_scalar)
-    x = x + mix
+    # the residual stream keeps the layer output's layout between the mixer
+    # and the MLP (on a mesh the mixer's partial sums would otherwise leave
+    # it sequence-sharded, and its gradient with it)
+    x = lshard(x + mix, ("batch", None, "embed"))
     if hasattr(p, "mlp"):
         h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
         x = x + p.mlp(h2, cfg)
@@ -250,7 +254,16 @@ def model_param_pspecs(cfg: ModelConfig, rules):
 def _embed_inputs(model: Model, cfg: ModelConfig, batch: dict) -> Tensor:
     if "embeds" in batch:
         return batch["embeds"].to(torch_dtype(cfg.dtype))
-    return model.embed[batch["tokens"].long()]
+    return _lookup(model.embed, batch["tokens"])
+
+
+def _lookup(table: Tensor, ids: Tensor) -> Tensor:
+    """table[ids]; on a mesh each rank looks its batch rows up in the whole
+    table (gathered, as DTensor's indexing rule gathers it on a 2-D mesh;
+    that rule cannot plan a 3-D mesh on torch 2.11)."""
+    axes = ("batch",) + (None,) * (ids.ndim - 1)
+    return local_apply(lambda t, i: t[i.long()], (table, ids), ((None, None), axes),
+                       axes + (None,))
 
 
 def _vision_kv_src(model: Model, cfg: ModelConfig, batch: dict) -> Tensor | None:
@@ -404,20 +417,36 @@ def cache_specs(cfg: ModelConfig, B: int, S_max: int) -> dict:
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, *,
                device: str | torch.device = "cuda") -> dict:
-    out = init_params(None, cache_pd(cfg, B, S_max), torch_dtype(cfg.dtype), device)
+    """A zero cache on ``device``; under active rules with a mesh, each
+    layer's leaf a DTensor at its descriptor's sharding, only this rank's
+    shard allocated (``pos`` a plain tensor, the same on every rank)."""
+    rules = current_rules()
+    dt = torch_dtype(cfg.dtype)
+    if rules.mesh is None:
+        out = init_params(None, cache_pd(cfg, B, S_max), dt, device)
+    else:
+        out = tree_map(lambda pd: sharded_zeros(pd.shape, dt, rules.sharding_for(pd.shape,
+                                                                                 pd.axes),
+                                                device), cache_pd(cfg, B, S_max))
     out["pos"] = torch.zeros((), dtype=torch.int32, device=device)
     return out
 
 
-def cache_pspecs(cfg: ModelConfig, B: int, S_max: int, rules):
-    """The reference's PartitionSpecs of its decode cache: ``pos`` replicated,
+def stacked_cache_pd(cfg: ModelConfig, B: int, S_max: int) -> dict:
+    """The reference's descriptor tree of its decode cache: ``pos``,
     ``period`` (one tree a slot, stacked over its repeats on an unnamed
     leading axis) and ``tail``."""
     period, n_per, tail = split_periods(cfg.layer_pattern)
-    tree = {"period": [stack_pds(layer_cache_pd(cfg, spec, B, S_max), n_per, axis_name=None)
+    return {"pos": PD((), (), "zeros"),
+            "period": [stack_pds(layer_cache_pd(cfg, spec, B, S_max), n_per, axis_name=None)
                        for spec in period],
             "tail": [layer_cache_pd(cfg, spec, B, S_max) for spec in tail]}
-    return {"pos": PartitionSpec(), **param_pspecs(tree, rules)}
+
+
+def cache_pspecs(cfg: ModelConfig, B: int, S_max: int, rules):
+    """The reference's PartitionSpecs of its decode cache (``pos``
+    replicated)."""
+    return param_pspecs(stacked_cache_pd(cfg, B, S_max), rules)
 
 
 @torch.no_grad()
@@ -442,7 +471,7 @@ def decode_step(model: Model, cfg: ModelConfig, cache: dict, batch: dict):
     """One token step. batch: {"token": (B,)}. The new token's entries are
     written into the cache's tensors in place; the returned cache holds
     them and ``pos + 1``. Returns (logits (B, padded_vocab), cache)."""
-    x = model.embed[batch["token"].long()][:, None, :]
+    x = _lookup(model.embed, batch["token"])[:, None, :]
     x = lshard(x, ("batch", None, "embed"))
     pos = cache["pos"]
     x, new_caches = _stack_apply(model, cfg, x, positions=pos.reshape(1),

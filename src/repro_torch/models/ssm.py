@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.mesh import lshard
+from repro_torch.distributed.mesh import local_apply, lshard
 from .layers import rms_norm
 from .params import PD, ParamModule
 
@@ -79,12 +79,15 @@ def ssm_apply(p: Mamba2Mixer, x_in: Tensor, cfg: ModelConfig, *, cache: dict | N
     A = -torch.exp(p.A_log.float())                                  # (H,)
     xBC = torch.cat([xz, Bc, Cc], -1)                                # (B,S,di+2N)
 
+    # on a mesh each rank convolves its batch rows, every channel
+    conv = lambda t, w: F.silu(_causal_conv(t, w))
     if cache is None:
-        xBC = F.silu(_causal_conv(xBC, p.conv_w))
+        xBC = local_apply(conv, (xBC, p.conv_w), _CONV_AXES, ("batch", None, None))
         new_cache = None
     else:
         window = torch.cat([cache["conv"].to(xBC.dtype), xBC], 1)   # (B,K-1+S,Ch)
-        xBC = F.silu(_causal_conv(window, p.conv_w))[:, K - 1:]     # aligned outputs
+        xBC = local_apply(conv, (window, p.conv_w), _CONV_AXES,
+                          ("batch", None, None))[:, K - 1:]          # aligned outputs
         new_cache = {"conv": window[:, -(K - 1):]}
 
     xs, Bs, Cs = torch.split(xBC, [di, N, N], dim=-1)
@@ -100,13 +103,23 @@ def ssm_apply(p: Mamba2Mixer, x_in: Tensor, cfg: ModelConfig, *, cache: dict | N
         y = y.reshape(B, 1, di).to(x_in.dtype)
         new_cache = {"state": state, "conv": new_cache["conv"]}
     else:
-        y, state = _ssd_chunked(xh, dt, A, Bs, Cs, p.D_skip, cfg)
+        # on a mesh each rank scans its block of batch rows and heads
+        y, state = local_apply(lambda *a: _ssd_chunked(*a, cfg),
+                               (xh, dt, A, Bs, Cs, p.D_skip), _SSD_AXES,
+                               [("batch", None, "heads", None), ("batch", "heads", None, None)])
         if cache is not None:
             new_cache = {"state": state, "conv": new_cache["conv"]}
         y = y.reshape(B, S, di).to(x_in.dtype)
 
     y = rms_norm(y * F.silu(z), p.out_norm, cfg.norm_eps)
     return y @ p.w_out, new_cache
+
+
+#: the convolution's input and taps (``local_apply``)
+_CONV_AXES = (("batch", None, None), (None, None))
+#: ``_ssd_chunked``'s operands' logical axes (``local_apply``)
+_SSD_AXES = (("batch", None, "heads", None), ("batch", None, "heads"), ("heads",),
+             ("batch", None, None), ("batch", None, None), ("heads",))
 
 
 def _ssd_chunked(xh: Tensor, dt: Tensor, A: Tensor, Bs: Tensor, Cs: Tensor, D_skip: Tensor,

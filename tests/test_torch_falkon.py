@@ -276,7 +276,8 @@ def test_port_is_jax_free():
             "repro_torch.checkpoint, repro_torch.train, repro_torch.launch.train, "
             "repro_torch.distributed.mesh, repro_torch.models.model, repro_torch.train.steps, "
             "repro_torch.train.trainer, repro_torch.checkpoint.checkpoint, "
-            "repro_torch.optim.optimizers, repro_torch.distributed.compression; "
+            "repro_torch.optim.optimizers, repro_torch.distributed.compression, "
+            "repro_torch.roofline, repro_torch.roofline.op_cost, repro_torch.launch.dryrun; "
             "from repro_torch.launch.mesh import make_production_mesh; "
             "from repro_torch.distributed.mesh import AxisRules, lshard, use_rules; "
             "from repro_torch.train.steps import place_train_state, param_shardings; "

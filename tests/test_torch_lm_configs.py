@@ -160,10 +160,11 @@ def test_batch_sample_shapes():
     assert int(out["tokens"].max()) < cfg.vocab and int(out["tokens"].min()) >= 0
 
 
-def test_unported_lm_entry_points_refuse():
-    """The unported part of A15, the dry run (A15.4), refuses, naming its
-    sub-item; the spec functions of the sharding rules (A15.3) return the
-    reference's specs, which replicate everything without a mesh."""
+def test_unported_lm_entry_points_refuse(tmp_path):
+    """The spec functions of the sharding rules (A15.3) return the
+    reference's specs, which replicate everything without a mesh; the dry
+    run (A15.4), which refused until it was ported, runs and writes its
+    artifact."""
     from repro.distributed.mesh import AxisRules as JAxisRules
     from repro.models import cache_pspecs as j_cache_pspecs
     from repro.models import model_param_pspecs as j_model_param_pspecs
@@ -180,5 +181,6 @@ def test_unported_lm_entry_points_refuse():
         assert len(got_leaves) == len(want_leaves) > 0
         assert all(tuple(g) == tuple(w) == () for g, w in zip(got_leaves, want_leaves))
     assert param_pspecs({}, rules) == {}
-    with pytest.raises(NotImplementedError, match=r"A15\.4"):
-        dryrun.main([])
+    assert dryrun.main(["--arch", "gemma3-1b", "--shape", "decode_32k", "--mesh", "single",
+                        "--out", str(tmp_path)]) == 0
+    assert (tmp_path / "gemma3-1b__decode_32k__single.json").exists()
