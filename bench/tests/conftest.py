@@ -1,0 +1,7 @@
+"""The program's package for the harness tests, as ``bench/run.py`` finds it."""
+import sys
+from pathlib import Path
+
+SRC = str(Path(__file__).resolve().parents[2] / "src")
+if SRC not in sys.path:
+    sys.path.insert(0, SRC)
