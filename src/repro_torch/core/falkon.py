@@ -60,14 +60,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
-import time
 import warnings
 from typing import TYPE_CHECKING, Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.data.streaming import (ChunkSource, ShuffledChunkSource, StreamingLoader,
                                        streaming_apply, streaming_sweep,
                                        streaming_uniform_centers)
@@ -230,14 +231,16 @@ class FalkonEstimator(torch.nn.Module):
         foreign-centers or wrong-X cache raises. The held one
         (``build_knm_cache``) is only a fast path, skipped when it does not
         match."""
-        if cache is None:
-            held = getattr(self, "_knm_cache", None)
-            if held is None or not held.matches(self.centers) or X is not held.X:
-                X = torch.as_tensor(X, dtype=self.centers.dtype, device=self.centers.device)
-                return self.ops.apply(X, self.centers, self.alpha)
-            cache = held
-        cache.check_serves(self.centers, int(X.shape[0]), X=X)
-        return cache.apply(self.alpha)
+        with trace.span("estimator.predict"):
+            if cache is None:
+                held = getattr(self, "_knm_cache", None)
+                if held is None or not held.matches(self.centers) or X is not held.X:
+                    X = torch.as_tensor(X, dtype=self.centers.dtype,
+                                        device=self.centers.device)
+                    return self.ops.apply(X, self.centers, self.alpha)
+                cache = held
+            cache.check_serves(self.centers, int(X.shape[0]), X=X)
+            return cache.apply(self.alpha)
 
     def predict_stream(self, loader, *, cache: KernelCache | None = None) -> Tensor:
         """Score a ``StreamingLoader`` (or any re-iterable of (X_chunk, _)
@@ -348,6 +351,15 @@ def _stored(ops: KernelOps, *tensors: Tensor) -> tuple[Tensor, ...]:
     return tuple(a.to(storage).contiguous() for a in tensors)
 
 
+def _sweep_span(sweep: Callable, device: torch.device) -> Callable:
+    """``sweep`` inside the device span ``ops.sweep``: one pass over a
+    solve's data, whether a backend, a cache's GEMMs or a stream makes it."""
+    def run(*args):
+        with trace.span("ops.sweep", device=device):
+            return sweep(*args)
+    return run
+
+
 def _solve_sweeps(ops: KernelOps, X: Tensor, y: Tensor, centers: Tensor,
                   cache: KernelCache | None, dt: torch.dtype) -> tuple[Callable, Callable]:
     """The matvec and the right-hand-side sweep of an in-core solve: GEMMs
@@ -357,9 +369,12 @@ def _solve_sweeps(ops: KernelOps, X: Tensor, y: Tensor, centers: Tensor,
     zeros = torch.zeros((centers.shape[0],) + tuple(y.shape[1:]), dtype=dt, device=X.device)
     if cache is not None:
         cache.check_serves(centers, X.shape[0])
-        return cache.sweep, lambda: cache.sweep(zeros, y)
-    Xs, Cs, ys = _stored(ops, X, centers, y)
-    return (lambda g: ops.sweep(Xs, Cs, g, None)), (lambda: ops.sweep(Xs, Cs, zeros, ys))
+        sweep, v = cache.sweep, y
+    else:
+        Xs, Cs, v = _stored(ops, X, centers, y)
+        sweep = functools.partial(ops.sweep, Xs, Cs)
+    sweep = _sweep_span(sweep, X.device)
+    return sweep, (lambda: sweep(zeros, v))
 
 
 def falkon_solve(X: Tensor, y: Tensor, centers: Tensor, precond: Preconditioner,
@@ -385,11 +400,14 @@ def falkon_solve(X: Tensor, y: Tensor, centers: Tensor, precond: Preconditioner,
     storage = _cg_storage(ops)
     matvec, rhs_sweep = _solve_sweeps(ops, X, y, centers, cache, dt)
     W = _falkon_operator(matvec, precond, lam, n)
-    b = precond.left(rhs_sweep() / n)   # r = B^T z / n (Alg. 1)
+    with trace.span("solve.rhs", device=X.device):
+        b = precond.left(rhs_sweep() / n)   # r = B^T z / n (Alg. 1)
     cg_fn = (conjugate_gradient_host if cache is not None and cache.tier == "host"
              else conjugate_gradient)
-    cg = cg_fn(W, b, t, tol=tol, storage_dtype=storage)
-    alpha = precond.coeffs(cg.x.to(dt))
+    with trace.span("solve.cg", device=X.device):
+        cg = cg_fn(W, b, t, tol=tol, storage_dtype=storage)
+    with trace.span("solve.coeffs", device=X.device):
+        alpha = precond.coeffs(cg.x.to(dt))
 
     cond = torch.zeros((), dtype=dt, device=X.device)
     if estimate_cond:
@@ -404,9 +422,10 @@ def falkon_solve(X: Tensor, y: Tensor, centers: Tensor, precond: Preconditioner,
                 v = w / torch.clamp(torch.linalg.norm(w), min=1e-30)
             return torch.dot(v, mv(v))
 
-        lam_max = power(lambda v: W(v.reshape(shape)).reshape(q))
-        lam_min = lam_max - power(lambda v: lam_max * v - W(v.reshape(shape)).reshape(q))
-        cond = torch.abs(lam_max) / torch.clamp(torch.abs(lam_min), min=1e-30)
+        with trace.span("solve.cond", device=X.device):
+            lam_max = power(lambda v: W(v.reshape(shape)).reshape(q))
+            lam_min = lam_max - power(lambda v: lam_max * v - W(v.reshape(shape)).reshape(q))
+            cond = torch.abs(lam_max) / torch.clamp(torch.abs(lam_min), min=1e-30)
 
     return FalkonState(centers=centers, precond=precond, beta=cg.x, alpha=alpha,
                        residual_norms=cg.residual_norms, cond_estimate=cond)
@@ -419,11 +438,15 @@ def _solve_path_core(matvec: Callable, rhs_sweep: Callable, precond: Preconditio
     CG sweeps serve all L systems; returns the CG result and the (M, L*p)
     coefficients. ``host`` runs the early-stopping CG driver (a streamed
     solve: each skipped iteration saves a pass over the data)."""
-    b = precond.expand_rhs(rhs_sweep() / n)   # (q, L*p): per-system A^{-T} only
+    device = precond.T.device
+    with trace.span("solve.rhs", device=device):
+        b = precond.expand_rhs(rhs_sweep() / n)   # (q, L*p): per-system A^{-T} only
     W = _falkon_operator(matvec, precond, None, n)
     cg_fn = conjugate_gradient_host if host else conjugate_gradient
-    cg = cg_fn(W, b, t, tol=tol, storage_dtype=storage)
-    return cg, precond.coeffs(cg.x.to(precond.T.dtype))
+    with trace.span("solve.cg", device=device):
+        cg = cg_fn(W, b, t, tol=tol, storage_dtype=storage)
+    with trace.span("solve.coeffs", device=device):
+        return cg, precond.coeffs(cg.x.to(precond.T.dtype))
 
 
 def falkon_solve_path(X: Tensor, y: Tensor, centers: Tensor, precond: PreconditionerPath,
@@ -502,9 +525,10 @@ def _stage_precondition(KMM: Tensor, lam, n: int, config: FalkonConfig, *,
     grid (a sequence) the :class:`PreconditionerPath`. ``report``, when
     given, receives the plan's path and block and the blocked path's
     ``FactorStats`` (device peak, bytes moved, copy and tile seconds, host
-    copies of T T^T; all zero in-core)."""
+    copies of T T^T; all zero in-core); only then are the blocked path's
+    copies and tiles timed, each to a synchronised end."""
     plan = plan_factor(KMM.shape[0], itemsize=max(KMM.dtype.itemsize, 4))
-    stats = FactorStats()
+    stats = FactorStats(timing=report is not None)
     build = make_preconditioner if isinstance(lam, (int, float)) else make_preconditioner_path
     precond = build(KMM, lam, n, D=D, jitter=config.jitter,
                     rank_deficient=config.rank_deficient, factor_plan=plan,
@@ -556,17 +580,13 @@ def _wraps_distributed(ops: KernelOps) -> bool:
 
 @contextlib.contextmanager
 def _timed(times: dict | None, name: str, device: torch.device):
-    """Record the stage's wall time, synchronised, when ``times`` is given."""
-    if times is None:
+    """The stage's span ``fit.<name>``; with ``times``, also its wall time
+    to a synchronised end, as ``times[name]``."""
+    clock = None if times is None else functools.partial(trace.synced_clock, device)
+    with trace.span(f"fit.{name}", device=device, clock=clock) as span:
         yield
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    times[name] = time.perf_counter() - t0
+    if times is not None:
+        times[name] = span.seconds
 
 
 def _fit_front(generator, X, y, config: FalkonConfig, ops: KernelOps | None, lam,
@@ -634,15 +654,16 @@ def falkon_fit(generator: torch.Generator | int, X, y, config: FalkonConfig, *,
     """
     if mesh is not None:
         config = dataclasses.replace(config, mesh=mesh, data_axes=tuple(data_axes))
-    device, kernel, ops, X, y, sel, precond, cache = _fit_front(
-        generator, X, y, config, ops, config.lam, stage_times)
-    with _timed(stage_times, "solve", device):
-        state = falkon_solve(X, y, sel.centers, precond, kernel, config.lam,
-                             config.iterations, tol=config.tol,
-                             estimate_cond=config.estimate_cond, ops=ops, cache=cache)
-    est = _stage_wrap(sel.centers, state.alpha, kernel, config, precond=precond,
-                      lam=config.lam)
-    return est, state
+    with trace.span("fit", device=torch.device(config.device)):
+        device, kernel, ops, X, y, sel, precond, cache = _fit_front(
+            generator, X, y, config, ops, config.lam, stage_times)
+        with _timed(stage_times, "solve", device):
+            state = falkon_solve(X, y, sel.centers, precond, kernel, config.lam,
+                                 config.iterations, tol=config.tol,
+                                 estimate_cond=config.estimate_cond, ops=ops, cache=cache)
+        est = _stage_wrap(sel.centers, state.alpha, kernel, config, precond=precond,
+                          lam=config.lam)
+        return est, state
 
 
 def _score_path(ops: KernelOps, centers: Tensor, alphas: Tensor, X_val: Tensor,
@@ -687,25 +708,26 @@ def falkon_fit_path(generator: torch.Generator | int, X, y, config: FalkonConfig
     if (X_val is None) != (y_val is None):
         raise ValueError("X_val and y_val must be given together")
     lam_ref = math.exp(sum(math.log(lam) for lam in lam_vals) / len(lam_vals))
-    device, kernel, ops, X, y, sel, precond, cache = _fit_front(
-        generator, X, y, config, ops, lam_vals, stage_times, lam_ref)
-    with _timed(stage_times, "solve", device):
-        state = falkon_solve_path(X, y, sel.centers, precond, config.iterations, ops=ops,
-                                  tol=config.tol, cache=cache)
-    del cache   # the path's scoring recomputes on the val rows
-    ests = tuple(_stage_wrap(sel.centers, state.alphas[i], kernel, config,
-                             precond=precond.system(i), lam=lam)
-                 for i, lam in enumerate(lam_vals))
-    val_scores = best = None
-    if X_val is not None:
-        with _timed(stage_times, "score", device):
-            dt = getattr(torch, config.dtype)
-            val_scores, best = _score_path(
-                ops, sel.centers, state.alphas,
-                torch.as_tensor(X_val, dtype=dt, device=device),
-                torch.as_tensor(y_val, dtype=dt, device=device))
-    return FalkonPathResult(estimators=ests, state=state, lams=lam_vals,
-                            val_scores=val_scores, best_index=best)
+    with trace.span("fit", device=torch.device(config.device)):
+        device, kernel, ops, X, y, sel, precond, cache = _fit_front(
+            generator, X, y, config, ops, lam_vals, stage_times, lam_ref)
+        with _timed(stage_times, "solve", device):
+            state = falkon_solve_path(X, y, sel.centers, precond, config.iterations, ops=ops,
+                                      tol=config.tol, cache=cache)
+        del cache   # the path's scoring recomputes on the val rows
+        ests = tuple(_stage_wrap(sel.centers, state.alphas[i], kernel, config,
+                                 precond=precond.system(i), lam=lam)
+                     for i, lam in enumerate(lam_vals))
+        val_scores = best = None
+        if X_val is not None:
+            with _timed(stage_times, "score", device):
+                dt = getattr(torch, config.dtype)
+                val_scores, best = _score_path(
+                    ops, sel.centers, state.alphas,
+                    torch.as_tensor(X_val, dtype=dt, device=device),
+                    torch.as_tensor(y_val, dtype=dt, device=device))
+        return FalkonPathResult(estimators=ests, state=state, lams=lam_vals,
+                                val_scores=val_scores, best_index=best)
 
 
 # ----------------------------------------------------------------------------
@@ -726,7 +748,7 @@ def _streamed_solve_parts(loader, centers: Tensor, ops: KernelOps, out_dim: tupl
                             device=centers.device)
         return streaming_sweep(ops, loader, Cs, zeros, use_targets=True)
 
-    return matvec, rhs_sweep
+    return _sweep_span(matvec, centers.device), _sweep_span(rhs_sweep, centers.device)
 
 
 def falkon_solve_streaming(loader, centers: Tensor, precond: Preconditioner, lam: float,
@@ -743,10 +765,14 @@ def falkon_solve_streaming(loader, centers: Tensor, precond: Preconditioner, lam
     matvec, rhs_sweep = _streamed_solve_parts(loader, centers, ops, out_dim, dt)
     n = loader.n_rows
     W = _falkon_operator(matvec, precond, lam, n)
-    b = precond.left(rhs_sweep() / n)
-    cg = conjugate_gradient_host(W, b, t, tol=tol, storage_dtype=_cg_storage(ops))
-    return FalkonState(centers=centers, precond=precond, beta=cg.x,
-                       alpha=precond.coeffs(cg.x.to(dt)), residual_norms=cg.residual_norms,
+    with trace.span("solve.rhs", device=centers.device):
+        b = precond.left(rhs_sweep() / n)
+    with trace.span("solve.cg", device=centers.device):
+        cg = conjugate_gradient_host(W, b, t, tol=tol, storage_dtype=_cg_storage(ops))
+    with trace.span("solve.coeffs", device=centers.device):
+        alpha = precond.coeffs(cg.x.to(dt))
+    return FalkonState(centers=centers, precond=precond, beta=cg.x, alpha=alpha,
+                       residual_norms=cg.residual_norms,
                        cond_estimate=torch.zeros((), dtype=dt, device=centers.device))
 
 
@@ -832,14 +858,15 @@ def falkon_fit_streaming(generator: torch.Generator | int, source: ChunkSource,
     2 on the card, 0 on the CPU), no cond estimate. ``ops`` replaces the
     configured backend; ``stage_times`` receives what :func:`falkon_fit`
     records."""
-    device, kernel, ops, centers, loader, out_dim, precond = _streaming_front(
-        generator, source, config, config.lam, prefetch=prefetch, centers=centers, ops=ops,
-        stage_times=stage_times)
-    with _timed(stage_times, "solve", device):
-        state = falkon_solve_streaming(loader, centers, precond, config.lam, config.iterations,
-                                       ops=ops, out_dim=out_dim, tol=config.tol)
-    est = _stage_wrap(centers, state.alpha, kernel, config, precond=precond, lam=config.lam)
-    return est, state
+    with trace.span("fit", device=torch.device(config.device)):
+        device, kernel, ops, centers, loader, out_dim, precond = _streaming_front(
+            generator, source, config, config.lam, prefetch=prefetch, centers=centers, ops=ops,
+            stage_times=stage_times)
+        with _timed(stage_times, "solve", device):
+            state = falkon_solve_streaming(loader, centers, precond, config.lam, config.iterations,
+                                           ops=ops, out_dim=out_dim, tol=config.tol)
+        est = _stage_wrap(centers, state.alpha, kernel, config, precond=precond, lam=config.lam)
+        return est, state
 
 
 def falkon_fit_path_streaming(generator: torch.Generator | int, source: ChunkSource,
@@ -852,17 +879,18 @@ def falkon_fit_path_streaming(generator: torch.Generator | int, source: ChunkSou
     its own stream): score the estimators with
     :meth:`FalkonEstimator.predict_stream`."""
     lam_vals = _check_lams(lams)
-    device, kernel, ops, centers, loader, out_dim, precond = _streaming_front(
-        generator, source, config, lam_vals, prefetch=prefetch, centers=centers, ops=ops,
-        stage_times=stage_times)
-    with _timed(stage_times, "solve", device):
-        state = falkon_solve_path_streaming(loader, centers, precond, config.iterations,
-                                            ops=ops, out_dim=out_dim, tol=config.tol)
-    ests = tuple(_stage_wrap(centers, state.alphas[i], kernel, config,
-                             precond=precond.system(i), lam=lam)
-                 for i, lam in enumerate(lam_vals))
-    return FalkonPathResult(estimators=ests, state=state, lams=lam_vals, val_scores=None,
-                            best_index=None)
+    with trace.span("fit", device=torch.device(config.device)):
+        device, kernel, ops, centers, loader, out_dim, precond = _streaming_front(
+            generator, source, config, lam_vals, prefetch=prefetch, centers=centers, ops=ops,
+            stage_times=stage_times)
+        with _timed(stage_times, "solve", device):
+            state = falkon_solve_path_streaming(loader, centers, precond, config.iterations,
+                                                ops=ops, out_dim=out_dim, tol=config.tol)
+        ests = tuple(_stage_wrap(centers, state.alphas[i], kernel, config,
+                                 precond=precond.system(i), lam=lam)
+                     for i, lam in enumerate(lam_vals))
+        return FalkonPathResult(estimators=ests, state=state, lams=lam_vals, val_scores=None,
+                                best_index=None)
 
 
 # ----------------------------------------------------------------------------
@@ -896,17 +924,18 @@ def falkon_fit_minibatch(generator: torch.Generator | int, X, y, config: FalkonC
             "chunk, so there is no fixed tile set to materialize — use "
             "falkon_fit for cached sweeps, or set knm_cache='off'")
     device = resolve_device(config.device)
-    if isinstance(generator, int):
-        generator = torch.Generator(device=device).manual_seed(generator)
-    device, kernel, ops, X, y, sel, precond, _ = _fit_front(
-        generator, X, y, config, ops, config.lam, stage_times, centers=centers)
-    (Cs,) = _stored(ops, sel.centers)
-    with _timed(stage_times, "solve", device):
-        result = minibatch_solve(X, y, Cs, precond, config.lam, mb, ops=ops,
-                                 generator=generator, beta0=beta0, split_times=stage_times)
-    est = _stage_wrap(sel.centers, result.alpha, kernel, config, precond=precond,
-                      lam=config.lam)
-    return est, result
+    with trace.span("fit", device=device):
+        if isinstance(generator, int):
+            generator = torch.Generator(device=device).manual_seed(generator)
+        device, kernel, ops, X, y, sel, precond, _ = _fit_front(
+            generator, X, y, config, ops, config.lam, stage_times, centers=centers)
+        (Cs,) = _stored(ops, sel.centers)
+        with _timed(stage_times, "solve", device):
+            result = minibatch_solve(X, y, Cs, precond, config.lam, mb, ops=ops,
+                                     generator=generator, beta0=beta0, split_times=stage_times)
+        est = _stage_wrap(sel.centers, result.alpha, kernel, config, precond=precond,
+                          lam=config.lam)
+        return est, result
 
 
 def falkon_fit_minibatch_streaming(generator: torch.Generator | int, source: ChunkSource,
@@ -929,19 +958,20 @@ def falkon_fit_minibatch_streaming(generator: torch.Generator | int, source: Chu
     :func:`falkon_fit_minibatch`.
     """
     mb = minibatch if minibatch is not None else MinibatchConfig()
-    if mb.shuffle:
-        device = resolve_device(config.device)
-        if isinstance(generator, int):
-            generator = torch.Generator(device=device).manual_seed(generator)
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                                 device=generator.device)[0])
-        source = ShuffledChunkSource(source, seed=seed)
-    device, kernel, ops, centers, loader, out_dim, precond = _streaming_front(
-        generator, source, config, config.lam, prefetch=prefetch, centers=centers, ops=ops,
-        stage_times=stage_times)
-    (Cs,) = _stored(ops, centers)
-    with _timed(stage_times, "solve", device):
-        result = minibatch_solve_stream(loader, Cs, precond, config.lam, mb, ops=ops,
-                                        out_dim=out_dim, beta0=beta0, split_times=stage_times)
-    est = _stage_wrap(centers, result.alpha, kernel, config, precond=precond, lam=config.lam)
-    return est, result
+    with trace.span("fit", device=torch.device(config.device)):
+        if mb.shuffle:
+            device = resolve_device(config.device)
+            if isinstance(generator, int):
+                generator = torch.Generator(device=device).manual_seed(generator)
+            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                                     device=generator.device)[0])
+            source = ShuffledChunkSource(source, seed=seed)
+        device, kernel, ops, centers, loader, out_dim, precond = _streaming_front(
+            generator, source, config, config.lam, prefetch=prefetch, centers=centers, ops=ops,
+            stage_times=stage_times)
+        (Cs,) = _stored(ops, centers)
+        with _timed(stage_times, "solve", device):
+            result = minibatch_solve_stream(loader, Cs, precond, config.lam, mb, ops=ops,
+                                            out_dim=out_dim, beta0=beta0, split_times=stage_times)
+        est = _stage_wrap(centers, result.alpha, kernel, config, precond=precond, lam=config.lam)
+        return est, result

@@ -42,6 +42,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import trace
+
 from .cg import active_columns, col_dot
 from .preconditioner import Preconditioner
 
@@ -243,42 +245,33 @@ def _pad_to(a: Tensor, rows: int) -> Tensor:
 
 
 class _SplitTimer:
-    """Seconds of the solve's steps and projections, split without a host
-    sync: on the card a pair of CUDA events around each, summed after one
-    synchronisation at the end; on the CPU the wall clock."""
+    """The solve's spans ``minibatch.step`` (the steps of one projection
+    period) and ``minibatch.projection`` (``repro_torch.trace``). With
+    ``times``, their seconds and counts as "steps", "projections",
+    "steps_count" and "projections_count", split without a host sync: on
+    the card each span's CUDA events, summed once the solve has ended; on
+    the CPU the wall clock."""
+
+    NAMES = {"steps": "minibatch.step", "projections": "minibatch.projection"}
 
     def __init__(self, times: dict | None, device: torch.device):
-        self.times = times
-        self.card = device.type == "cuda"
+        self.times, self.device = times, device
         self.spans: dict[str, list] = {"steps": [], "projections": []}
 
-    def start(self):
-        if self.times is None:
-            return None
-        if self.card:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
+    def start(self, name: str):
+        return trace.start(self.NAMES[name], device=self.device,
+                           clock=None if self.times is None else time.perf_counter)
 
-    def stop(self, name: str, t0) -> None:
-        if self.times is None:
-            return
-        if self.card:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.spans[name].append((t0, ev))
-        else:
-            self.spans[name].append(time.perf_counter() - t0)
+    def stop(self, name: str, span) -> None:
+        span.end()
+        if self.times is not None:
+            self.spans[name].append(span)
 
     def finish(self) -> None:
         if self.times is None:
             return
-        if self.card:
-            torch.cuda.synchronize()
         for name, spans in self.spans.items():
-            self.times[name] = (sum(a.elapsed_time(b) for a, b in spans) / 1e3 if self.card
-                                else sum(spans))
+            self.times[name] = sum(s.device_seconds for s in spans)
             self.times[f"{name}_count"] = len(spans)
 
 
@@ -338,12 +331,12 @@ def minibatch_solve(X: Tensor, y: Tensor, centers: Tensor, precond: Precondition
         else:
             xe, ye, me = X_pad, y_pad, mask
         for j in range(periods):
-            t0 = timer.start()
+            t0 = timer.start("steps")
             for i in range(j * k, (j + 1) * k):
                 s = slice(i * c, (i + 1) * c)
                 state = minibatch_step(ops, centers, state, xe[s], ye[s], row_mask=me[s])
             timer.stop("steps", t0)
-            t0 = timer.start()
+            t0 = timer.start("projections")
             state, gn = minibatch_project(precond, lam, state, step_size=eta,
                                           momentum=mb.momentum, avg_after=avg_after,
                                           tol=mb.tol)
@@ -412,7 +405,7 @@ def minibatch_solve_stream(loader, centers: Tensor, precond: Preconditioner, lam
     rows_swept = float(pilot_sweeps * chunk_rows)
 
     def project(state):
-        t0 = timer.start()
+        t0 = timer.start("projections")
         state, gn = minibatch_project(precond, lam, state, step_size=eta,
                                       momentum=mb.momentum, avg_after=avg_after, tol=mb.tol)
         timer.stop("projections", t0)
@@ -421,7 +414,7 @@ def minibatch_solve_stream(loader, centers: Tensor, precond: Preconditioner, lam
 
     for _ in range(mb.epochs):
         in_period = 0
-        t0 = timer.start()
+        t0 = timer.start("steps")
         for xc, yc in loader:
             xp, yp, mp = padded(xc, yc)
             state = minibatch_step(ops, centers, state, xp, yp, row_mask=mp)
@@ -431,7 +424,7 @@ def minibatch_solve_stream(loader, centers: Tensor, precond: Preconditioner, lam
                 timer.stop("steps", t0)
                 state = project(state)
                 in_period = 0
-                t0 = timer.start()
+                t0 = timer.start("steps")
         if in_period:
             timer.stop("steps", t0)
             state = project(state)

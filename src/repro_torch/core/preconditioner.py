@@ -42,6 +42,7 @@ import warnings
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels.blocked_cholesky import (
     FactorStats,
     blocked_cholesky,
@@ -59,7 +60,8 @@ def _bcast(d: Tensor, v: Tensor) -> Tensor:
 def _tri_solve(T: Tensor, v: Tensor, *, upper: bool) -> Tensor:
     """Triangular solve for a (q,) or (q, p) right-hand side."""
     vec = v.ndim == 1
-    out = torch.linalg.solve_triangular(T, v[:, None] if vec else v, upper=upper)
+    with trace.span("precond.solve", device=T.device):
+        out = torch.linalg.solve_triangular(T, v[:, None] if vec else v, upper=upper)
     return out[:, 0] if vec else out
 
 
@@ -178,7 +180,9 @@ class PreconditionerPath:
         """Per-system A_l^{-1} (or A_l^{-T}) over the column groups of U:
         one batched triangular solve over the stack."""
         A = self.A.mT if trans else self.A
-        return self._ungroup(torch.linalg.solve_triangular(A, self._group(U), upper=not trans))
+        with trace.span("precond.solve", device=A.device):
+            G = torch.linalg.solve_triangular(A, self._group(U), upper=not trans)
+        return self._ungroup(G)
 
     def col_lams(self, U: Tensor) -> Tensor:
         """lams broadcast to U's columns: lam_l repeated p times."""
@@ -209,8 +213,9 @@ class PreconditionerPath:
         if w.ndim == 1:
             w = w[:, None]
         shared = _to_q(self.T, self.diag_T, self.Q, self.D, w)           # (q, p)
-        per = torch.linalg.solve_triangular(self.A.mT, shared.expand(self.L, *shared.shape),
-                                            upper=False)                  # (L, q, p)
+        with trace.span("precond.solve", device=self.A.device):
+            per = torch.linalg.solve_triangular(self.A.mT, shared.expand(self.L, *shared.shape),
+                                                upper=False)              # (L, q, p)
         return self._ungroup(per)
 
     def split(self, stacked: Tensor) -> Tensor:

@@ -41,9 +41,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 
 import torch
+
+from repro_torch import trace
 
 from .kernel_matvec import _check_operands, _ptr, _route, _stream
 
@@ -91,9 +92,14 @@ class FactorStats:
     ``bytes_transferred`` counts host<->device copies, both directions;
     ``copy_seconds`` and ``tile_seconds`` split the factorization's wall time
     between those copies (with the host gathers and scatters of strided
-    panels) and the tile operations, each timed to a synchronised end.
-    ``host_copy_bytes`` counts the host copies of T T^T that a lam path
-    makes so that each lam factors an unspoiled matrix.
+    panels) and the tile operations, each timed to a synchronised end, when
+    ``timing`` is set (the default for a ``FactorStats`` made by the caller;
+    a fit sets it only when asked for ``stage_times``). Without it the two
+    stay 0 and nothing synchronises; the blocks are still the spans
+    ``factor.copy`` and ``factor.tile`` while tracing is on
+    (``repro_torch.trace``). ``host_copy_bytes`` counts the host copies of
+    T T^T that a lam path makes so that each lam factors an unspoiled
+    matrix.
     """
 
     peak_device_bytes: int = 0
@@ -105,6 +111,7 @@ class FactorStats:
     copy_seconds: float = 0.0
     tile_seconds: float = 0.0
     host_copy_bytes: int = 0
+    timing: bool = True
     _device: torch.device | None = dataclasses.field(default=None, repr=False)
     _base: int = dataclasses.field(default=0, repr=False)
 
@@ -115,19 +122,17 @@ class FactorStats:
 
     def clock(self) -> float:
         """Wall time after the device's queued work has finished."""
-        if self._device is not None and self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
-        return time.perf_counter()
+        return trace.synced_clock(self._device)
 
     @contextlib.contextmanager
     def timed(self, what: str):
-        """Add the block's synchronised wall time to ``<what>_seconds``."""
-        t0 = self.clock()
-        try:
+        """The block's span ``factor.<what>``; with ``timing``, also its
+        synchronised wall time, added to ``<what>_seconds``."""
+        with trace.span(f"factor.{what}", device=self._device,
+                        clock=self.clock if self.timing else None) as span:
             yield
-        finally:
-            setattr(self, f"{what}_seconds", getattr(self, f"{what}_seconds")
-                    + self.clock() - t0)
+        if self.timing:
+            setattr(self, f"{what}_seconds", getattr(self, f"{what}_seconds") + span.seconds)
 
     def alloc(self, nbytes: int) -> None:
         self.current_device_bytes += nbytes
@@ -385,7 +390,7 @@ def blocked_cholesky(K, block: int = 1024, *, tile_impl: str = "auto",
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
     device = torch.device(device)
-    stats = stats if stats is not None else FactorStats()
+    stats = stats if stats is not None else FactorStats(timing=False)
     step = on_step if on_step is not None else (lambda stage, s: None)
     potrf, trsm, update = _engine(tile_impl, device)
     W = _host_working(K, overwrite)
@@ -455,7 +460,7 @@ def blocked_syrk_tt(T, block: int = 1024, *, stats: FactorStats | None = None,
     fp32 matmul (TF32 off), as the reference leaves it to XLA.
     """
     device = torch.device(device)
-    stats = stats if stats is not None else FactorStats()
+    stats = stats if stats is not None else FactorStats(timing=False)
     T = torch.as_tensor(T)
     if T.device.type != "cpu":
         T = T.cpu()

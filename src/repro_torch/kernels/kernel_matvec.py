@@ -52,6 +52,7 @@ import functools
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.kernels import KernelSpec, tile_eval
 
 Tensor = torch.Tensor
@@ -477,8 +478,9 @@ def fused_sweep(X: Tensor, C: Tensor, u: Tensor, v: Tensor | None = None, *,
              else _fused_sweep_cuda)
     ws, count = [], 0
     for g in column_groups(p):
-        w, c = sweep(X, C, _group(u2, g, p), _group(v2, g, p), spec=spec, row_mask=row_mask,
-                     compensated=compensated)
+        with trace.span("kernel.launch"):
+            w, c = sweep(X, C, _group(u2, g, p), _group(v2, g, p), spec=spec,
+                         row_mask=row_mask, compensated=compensated)
         ws.append(w)
         count = count + c
     w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=1)
@@ -611,9 +613,11 @@ def kernel_matmul(A: Tensor, B: Tensor, V: Tensor, add: Tensor | None = None, *,
     p = V2.shape[1]
     matmul = (kernel_matmul_plain if _route("kernel_matmul", A, B, V2, add2) == "cpu"
               else _kernel_matmul_cuda)
-    outs = [matmul(A, B, _group(V2, g, p), _group(add2, g, p), spec=spec,
-                   compensated=compensated, out_dtype=out_dtype)
-            for g in column_groups(p)]
+    outs = []
+    for g in column_groups(p):
+        with trace.span("kernel.launch"):
+            outs.append(matmul(A, B, _group(V2, g, p), _group(add2, g, p), spec=spec,
+                               compensated=compensated, out_dtype=out_dtype))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out[:, 0] if squeeze else out
 
@@ -740,10 +744,11 @@ def pairwise_kernel(A: Tensor, B: Tensor, *, spec: KernelSpec,
     if out is not None and out.shape != (A.shape[0], B.shape[0]):
         raise ValueError(f"pairwise_kernel: out shape {tuple(out.shape)} != "
                          f"({A.shape[0]}, {B.shape[0]})")
-    if _route("pairwise_kernel", A, B, out) == "cpu":
-        K = pairwise_kernel_plain(A, B, spec=spec)
-        return K if out is None else out.copy_(K)
-    return _pairwise_kernel_cuda(A, B, spec, out)
+    with trace.span("kernel.launch"):
+        if _route("pairwise_kernel", A, B, out) == "cpu":
+            K = pairwise_kernel_plain(A, B, spec=spec)
+            return K if out is None else out.copy_(K)
+        return _pairwise_kernel_cuda(A, B, spec, out)
 
 
 pairwise_kernel.launches = 0

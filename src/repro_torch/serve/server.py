@@ -45,6 +45,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 from .coalesce import Dispatch, bucket_ladder, plan_dispatches
 
 Tensor = torch.Tensor
@@ -60,7 +62,8 @@ class ServeStats:
     by bucket rung (on the card, each one replay of that rung's graph).
     ``dispatch_seconds`` holds the host time of the last LATENCY_WINDOW
     dispatches, each from the start of its packing to the end of its
-    scatter-back."""
+    scatter-back, which is also the span ``serve.dispatch`` while tracing
+    is on (``repro_torch.trace``)."""
 
     dispatches: int = 0
     rung_dispatches: collections.Counter = dataclasses.field(
@@ -243,12 +246,12 @@ class CoalescingPredictServer:
 
         inflight: collections.deque = collections.deque()
         for disp in plan:
-            t0 = time.perf_counter()
+            t0, span = time.perf_counter(), trace.start("serve.dispatch")
             buf = np.zeros((disp.bucket, self._dim), self._np_dtype)
             for s in disp.segments:
                 buf[s.buf_offset:s.buf_offset + s.rows] = \
                     batches[s.request][s.req_offset:s.req_offset + s.rows]
-            inflight.append((disp, self._run(disp.bucket, buf), t0))
+            inflight.append((disp, self._run(disp.bucket, buf), t0, span))
             self.stats.dispatches += 1
             self.stats.rung_dispatches[disp.bucket] += 1
             self.stats.rows_valid += disp.rows
@@ -283,7 +286,7 @@ class CoalescingPredictServer:
         r.graph.replay()
         return r.out.clone()
 
-    def _scatter(self, disp: Dispatch, dev: Tensor, t0: float, sizes, outs) -> None:
+    def _scatter(self, disp: Dispatch, dev: Tensor, t0: float, span, sizes, outs) -> None:
         host = dev.cpu().numpy()                      # blocks until ready
         for s in disp.segments:
             out = outs[s.request]
@@ -292,6 +295,7 @@ class CoalescingPredictServer:
                                                  host.dtype)
             out[s.req_offset:s.req_offset + s.rows] = host[s.buf_offset:s.buf_offset + s.rows]
         self.stats.dispatch_seconds.append(time.perf_counter() - t0)
+        span.end()
 
     def _finalize(self, out: np.ndarray | None, size: int) -> np.ndarray:
         if out is None:                               # zero-row request
